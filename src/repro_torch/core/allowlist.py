@@ -1,0 +1,52 @@
+"""Pre-filter allowlist (paper §3.5).
+
+Applied BEFORE top-k, never after, so a selective allowlist still returns
+min(k, |allowlist|) real results.  The mask over row positions is built on
+the host from external ids and moved to the scores' device when applied.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+# Mask value for disallowed rows: large-negative instead of -inf so that
+# score arithmetic never produces NaNs.
+NEG = np.float32(-3.0e38)
+
+
+@dataclasses.dataclass
+class Allowlist:
+    """Pre-filter over external ids."""
+
+    mask: np.ndarray  # [n] bool over row positions
+    n_allowed: int
+
+    @staticmethod
+    def from_ids(
+        allowed_ids: Sequence[int],
+        index_ids: np.ndarray,
+        *,
+        dense_threshold: float = 0.01,
+    ) -> "Allowlist":
+        """Dense selections go through a bounded-universe bitmap, sparse ones
+        through a sorted membership test (the paper's bitvec/HashSet split)."""
+        allowed = np.asarray(list(allowed_ids), dtype=np.int64)
+        n = len(index_ids)
+        if len(allowed) >= dense_threshold * n:
+            lo, hi = index_ids.min(), index_ids.max()
+            bitmap = np.zeros(int(hi - lo + 1), dtype=bool)
+            in_range = (allowed >= lo) & (allowed <= hi)
+            bitmap[(allowed[in_range] - lo).astype(np.int64)] = True
+            mask = bitmap[(index_ids - lo).astype(np.int64)]
+        else:
+            mask = np.isin(index_ids, allowed)
+        return Allowlist(mask=mask, n_allowed=int(mask.sum()))
+
+    def apply(self, scores: torch.Tensor) -> torch.Tensor:
+        """Mask scores of disallowed rows to NEG (pre-top-k)."""
+        mask = torch.as_tensor(self.mask, device=scores.device)
+        return torch.where(mask, scores, torch.tensor(NEG, device=scores.device))

@@ -1,0 +1,56 @@
+"""BruteForce backend (paper §3.4.1): a linear scan of the packed corpus.
+
+Zero build time beyond the encode, deterministic, memory-compact: the
+paper's default index.  The scan is ``ops.score_raw``, which on the card is
+the 4-bit CUDA kernel; ``search`` routes through ``engine.search_backend``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from . import quantize as qz
+from .allowlist import Allowlist
+
+
+def scan_stage(q_rot: torch.Tensor, packed: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Raw full-corpus scan: [b, d'] rotated queries x [n, bytes] codes -> [b, n]."""
+    return ops.score_raw(packed, q_rot, bits=bits)
+
+
+@dataclasses.dataclass
+class BruteForceIndex:
+    enc: qz.Encoded
+    ids: np.ndarray  # [n] external ids (u64 in the .mvec file), on the host
+
+    @staticmethod
+    def build(
+        vectors: torch.Tensor,
+        *,
+        ids: Optional[np.ndarray] = None,
+        metric: str = "cosine",
+        seed: int = 0x6D6F6E61,
+        bits: int = 4,
+        std=None,
+    ) -> "BruteForceIndex":
+        enc = qz.encode(vectors, metric=metric, seed=seed, bits=bits, std=std)
+        if ids is None:
+            ids = np.arange(vectors.shape[0], dtype=np.uint64)
+        return BruteForceIndex(enc=enc, ids=np.asarray(ids, dtype=np.uint64))
+
+    def scores(self, queries: torch.Tensor) -> torch.Tensor:
+        """Adjusted scores [b, n] of the full packed corpus."""
+        q_rot = qz.encode_query(torch.atleast_2d(queries), self.enc)
+        return ops.score_packed(q_rot, self.enc)
+
+    def search(self, queries, k: int, *,
+               allow: Optional[Allowlist] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores [b, k], external ids [b, k]); stable top-k, and slots with
+        no admissible row carry SENTINEL_ID and a NEG score."""
+        from ..engine.plan import search_backend
+        return search_backend(self, queries, k, allow=allow)

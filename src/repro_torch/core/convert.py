@@ -1,0 +1,55 @@
+"""Build the port's ``Encoded`` from plain arrays.
+
+The fields of an encoded corpus (packed codes, norms, seed and shape
+metadata) are the "weights" of this system.  Taking them as numpy arrays
+lets one encoded corpus, for example the reference's ``Encoded``, feed both
+packages without going through a file.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import quantize as qz
+from .rhdh import next_pow2
+from .standardize import METRICS, GlobalStd
+
+
+def encoded_from_arrays(
+    packed: np.ndarray,
+    qnorms: np.ndarray,
+    *,
+    seed: int,
+    metric: str,
+    bits: int,
+    dim: int,
+    dim_pad: int,
+    std_mean: Optional[float] = None,
+    std_inv_std: Optional[float] = None,
+    device: torch.device | str = "cuda",
+) -> qz.Encoded:
+    qz._require_4bit(bits)
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
+    if dim_pad != next_pow2(dim):
+        raise ValueError(f"dim_pad={dim_pad} is not next_pow2(dim={dim})")
+    packed = np.asarray(packed, dtype=np.uint8)
+    qnorms = np.asarray(qnorms, dtype=np.float32)
+    if packed.ndim != 2 or packed.shape[1] != dim_pad // 2:
+        raise ValueError(f"packed must be [n, {dim_pad // 2}], got {packed.shape}")
+    if qnorms.shape != (packed.shape[0],):
+        raise ValueError(f"qnorms must be [{packed.shape[0]}], got {qnorms.shape}")
+    if (std_mean is None) != (std_inv_std is None):
+        raise ValueError("pass both std_mean and std_inv_std, or neither")
+    std = None if std_mean is None else GlobalStd(float(std_mean), float(std_inv_std))
+    dev = resolve_device(device)
+    return qz.Encoded(
+        packed=torch.tensor(packed, device=dev),
+        qnorms=torch.tensor(qnorms, device=dev),
+        seed=int(seed), metric=metric, bits=bits, dim=int(dim), dim_pad=int(dim_pad),
+        std=std,
+    )
