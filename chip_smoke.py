@@ -3,9 +3,6 @@
 
     python3 chip_smoke.py [--json report.json]
 
-(``--n``, ``--dim`` and ``--big-n`` shrink the shapes for a rehearsal; the
-defaults are the main path's.)
-
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. check the card and print its ``nvidia-smi`` name and power limit;
@@ -46,7 +43,12 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM data-sheet peaks (dense): HBM3 bandwidth and non-tensor f32 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-BATCHES = 10   # query batches of 64 on the main path
+# The main path's shapes: the paper's headline cell (AG News, 45K x 1024).
+N = 45_000         # corpus rows
+DIM = 1024         # embedding width
+BIG_N = 1_000_000  # rows of the large scan check
+SEED = 0           # data seed
+BATCHES = 10       # query batches of 64 on the main path
 
 FAILURES: list = []
 
@@ -105,10 +107,6 @@ def profile_window(torch, fn, label: str, top: int = 10) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=45_000, help="corpus rows")
-    ap.add_argument("--dim", type=int, default=1024, help="embedding width")
-    ap.add_argument("--big-n", type=int, default=1_000_000, help="rows of the large scan check")
-    ap.add_argument("--seed", type=int, default=0, help="data seed")
     ap.add_argument("--json", default=None, help="also write the full report here")
     args = ap.parse_args()
 
@@ -151,7 +149,7 @@ def main() -> int:
     report["build_s"] = build_s
 
     # ---- 3. kernels against their plain versions -----------------------------
-    rng = np.random.default_rng(args.seed + 1)
+    rng = np.random.default_rng(SEED + 1)
     fwht_err = {}
 
     def check_fwht(n: int, d: int) -> float:
@@ -173,7 +171,7 @@ def main() -> int:
 
     for n, d in [(1000, 5), (1000, 16), (4096, 1000), (1024, 4096), (64, 32768)]:
         check_fwht(n, d)
-    fwht_err["main"] = check_fwht(args.n, args.dim)
+    fwht_err["main"] = check_fwht(N, DIM)
 
     deq_table = torch.tensor(lloydmax.CENTROIDS_4BIT, device=dev)
 
@@ -197,12 +195,12 @@ def main() -> int:
 
     scan_err = 0.0
     for b in (1, 7, 64):
-        for n in (1, 300, args.n):
+        for n in (1, 300, N):
             worst, packed, q, got = check_scan(b, n, 1024)
-            if (b, n) == (64, args.n):
+            if (b, n) == (64, N):
                 scan_err, main_packed, main_q, main_got = worst, packed, q, got
     check_scan(7, 300, 16)
-    check_scan(64, args.big_n, 1024)
+    check_scan(64, BIG_N, 1024)
     # Determinism across batch composition: the first 7 queries alone give
     # the bytes they got inside the batch of 64.
     part = nibble_dot_cuda(main_packed, main_q[:7].contiguous())
@@ -218,8 +216,8 @@ def main() -> int:
 
     # ---- 4. the main path ----------------------------------------------------
     t0 = time.perf_counter()
-    corpus = embedding_corpus(args.seed, args.n, args.dim)
-    queries = queries_from_corpus(corpus, args.seed + 1, 64 * BATCHES)
+    corpus = embedding_corpus(SEED, N, DIM)
+    queries = queries_from_corpus(corpus, SEED + 1, 64 * BATCHES)
     say(f"data: corpus {corpus.shape} queries {queries.shape} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -240,7 +238,7 @@ def main() -> int:
     launches = {"fwht": hadamard.fwht_cuda.launches,
                 "nibble_dot": nibble_dot_cuda.launches}
     search_launches = {k: launches[k] - build_launches[k] for k in launches}
-    say(f"main path: build {args.n}x{args.dim} in {main_build_s:.3f} s, "
+    say(f"main path: build {N}x{DIM} in {main_build_s:.3f} s, "
         f"{BATCHES} searches of 64 in {main_search_s:.3f} s")
     say(f"launches: build {build_launches}, {BATCHES} searches {search_launches}")
     expect(launches["fwht"] > 0, "the Hadamard kernel was not launched on the main path")
@@ -250,7 +248,7 @@ def main() -> int:
     ids = np.concatenate([r[1] for r in results])
     expect(scores.shape == (64 * BATCHES, 10) and np.isfinite(scores).all(),
            "search scores are not finite [b, 10]")
-    expect(bool((ids < args.n).all()), "search returned a sentinel or out-of-range id")
+    expect(bool((ids < N).all()), "search returned a sentinel or out-of-range id")
 
     qt = torch.from_numpy(queries).to(dev)
     ct = torch.from_numpy(corpus).to(dev)
@@ -304,7 +302,7 @@ def main() -> int:
         delta = (a.int() - b.int()).abs()
         flips[name] = {"flips": int((delta > 0).sum()), "max_level_delta": int(delta.max()),
                        "codes": n_codes}
-    say(f"encode code flips at {args.n}x{args.dim}: {json.dumps(flips)}")
+    say(f"encode code flips at {N}x{DIM}: {json.dumps(flips)}")
     kp = flips["kernel_vs_plain_card"]
     expect(kp["flips"] <= 1e-4 * n_codes and kp["max_level_delta"] <= 1,
            "the Hadamard kernel flips more than 1e-4 of codes or by more than one level")
@@ -387,7 +385,7 @@ def main() -> int:
     encode_s = sorted(builds)[2]
     say(f"search: {qps:.1f} queries/s over {len(lat)} batches of 64; batch latency "
         f"median {1e3 * lat[50]:.3f} ms p90 {1e3 * lat[89]:.3f} ms")
-    say(f"encode: {args.n / encode_s:.1f} rows/s ({args.n}x{args.dim} from host numpy, "
+    say(f"encode: {N / encode_s:.1f} rows/s ({N}x{DIM} from host numpy, "
         f"median of 5 builds: {encode_s:.4f} s)")
     report["timing"] = {
         "scan": {"kernel": t_scan, "plain": t_scan_plain, "library": t_scan_lib,
@@ -395,15 +393,23 @@ def main() -> int:
         "fwht": {"kernel": t_fwht, "plain": t_fwht_plain, "library": t_fwht_lib,
                  "bound_ms": fwht_bound, "bound_by": fwht_by},
         "search_qps": qps, "search_batch_ms_median": 1e3 * lat[50],
-        "search_batch_ms_p90": 1e3 * lat[89], "encode_rows_per_s": args.n / encode_s,
+        "search_batch_ms_p90": 1e3 * lat[89], "encode_rows_per_s": N / encode_s,
     }
     report["profile"] = {
         "search": profile_window(torch, lambda: [
             idx.search(queries[64 * i: 64 * (i + 1)], k=10) for i in range(BATCHES)],
             f"{BATCHES} searches of 64"),
         "build": profile_window(torch, lambda: MonaVec.build(corpus, metric="cosine"),
-                                f"one build of {args.n}x{args.dim}"),
+                                f"one build of {N}x{DIM}"),
     }
+    # An estimate, not a measurement: the traced device time per batch over
+    # the untraced median batch latency.
+    busy_per_batch_ms = report["profile"]["search"]["device_busy_us"] / BATCHES / 1e3
+    idle_est = max(0.0, 1.0 - busy_per_batch_ms / (1e3 * lat[50]))
+    report["profile"]["search"]["idle_share_untraced_estimate"] = idle_est
+    say(f"search idle share, estimated untraced: {idle_est:.3f} (traced device time "
+        f"{busy_per_batch_ms:.4f} ms per batch over the untraced median batch latency "
+        f"{1e3 * lat[50]:.4f} ms)")
 
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
