@@ -6,21 +6,38 @@
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. check the card and print its ``nvidia-smi`` name and power limit;
-2. build both CUDA kernels (src/repro_torch/csrc/) with nvcc, in parallel;
+2. build the four CUDA sources (src/repro_torch/csrc/) with nvcc, in parallel;
 3. hold each kernel against its plain PyTorch version on the card, from
    numpy-seeded inputs: the Hadamard kernel at d' in {8, 16, 1024, 4096,
    32768} and at the main shape, the 4-bit scan at b in {1, 7, 64} x
-   n in {1, 300, n} (d'=1024), at d'=16, and at n=1,000,000;
+   n in {1, 300, n} (d'=1024), at d'=16, and at n=1,000,000; the sign and
+   crumb proxies bit for bit at the same b x n grid, at d' in {8, 16} and
+   at n=1,000,000; the gathered 4-bit rescore at b in {1, 7, 64} x m in
+   {1, 80, 320} (and at d'=16), within tolerance of its plain version and
+   byte for byte against the full-scan kernel at the same (query, row);
 4. run the main path: ``MonaVec.build`` (cosine, BruteForce, 4-bit) over the
    seeded AG News stand-in, then 10 batches of 64 queries at k=10, reading
    the kernels' launch counters around it; recall@10 against exact f32
    cosine on the card; a repeated search must be byte-identical, and
    save -> load -> search equal; the encode's codes are counted against
    the plain (Kronecker) rotation on the card and a CPU encode;
+4b. run the cascade path on the phase-4 index: for ``enable_coarse("sign")``
+   and ``("crumb")`` at ``rescore_mult`` 8 and 32, 10 batches of 64 at k=10
+   with the launch counters set to 0 before and read after (the proxy and
+   gathered kernels must run, the full-scan kernel must not); recall@10
+   against exact f32 cosine and the full scan; the port's plain cascade on
+   the CPU over the same encoding; every returned score byte-equal to the
+   full scan's score of that id; determinism; v10 save -> load -> search;
 5. time each kernel, its plain version and a one-call PyTorch yardstick
-   with CUDA events (medians), beside the bound the card could reach; the
-   end-to-end search rate and encode rate; and a torch.profiler breakdown
-   of the search and build windows (device time by kernel, idle share).
+   with CUDA events (medians of one launch per sample; each kernel also as
+   the mean of 10 back-to-back launches per sample), beside the bound the
+   card could reach (the proxies also at n=1,000,000, the rescore at m in
+   {80, 320}); the
+   end-to-end search rate and encode rate; the cascade's rate and batch
+   latency beside the full scan, and at n=1,000,000 (random codes) the
+   batch latency of the full scan and of each cascade; a torch.profiler
+   breakdown of the search, cascade and build windows (device time by
+   kernel, idle share).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -40,15 +57,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM3 bandwidth and non-tensor f32 rate.
+# H100 SXM data-sheet peaks (dense, 700 W): HBM3 bandwidth, the non-tensor
+# f32 rate and the int8 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12
+# 32-bit popcounts on the CUDA cores: 16 per clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), 132 SMs, 1.98 GHz.  A design figure of the proxy kernels,
+# not their bound: the card does the same work faster as int8 products.
+PEAK_POPC_PER_S = 132 * 16 * 1.98e9
 # The main path's shapes: the paper's headline cell (AG News, 45K x 1024).
 N = 45_000         # corpus rows
 DIM = 1024         # embedding width
 BIG_N = 1_000_000  # rows of the large scan check
 SEED = 0           # data seed
 BATCHES = 10       # query batches of 64 on the main path
+RESCORE_MULTS = (8, 32)   # cascade budgets: m = rescore_mult * k survivors
+BIG_BATCHES = 20   # timed query batches of 64 at n=1,000,000
 
 FAILURES: list = []
 
@@ -65,9 +91,23 @@ def expect(cond: bool, what: str) -> None:
         say(f"FAIL: {what}")
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S) -> tuple:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def batch_latencies(search, queries, batches: int) -> dict:
+    """Closed-loop host-clock latency of ``batches`` searches of 64 (each
+    returns numpy on the host, so each ends with the device done)."""
+    lat = []
+    for i in range(batches):
+        j = i % (len(queries) // 64)
+        t0 = time.perf_counter()
+        search(queries[64 * j: 64 * (j + 1)])
+        lat.append(time.perf_counter() - t0)
+    lat.sort()
+    return {"qps": 64 * len(lat) / sum(lat), "median_ms": 1e3 * lat[len(lat) // 2],
+            "p90_ms": 1e3 * lat[int(0.9 * len(lat)) - 1], "batches": len(lat)}
 
 
 def profile_window(torch, fn, label: str, top: int = 10) -> dict:
@@ -120,9 +160,11 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import MonaVec
-    from repro_torch.core import lloydmax, quantize as qz, rhdh, scoring, standardize
+    from repro_torch.core import binary, lloydmax, quantize as qz, rhdh, scoring, standardize
     from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
     from repro_torch.kernels import cuda_build, hadamard, ref
+    from repro_torch.kernels.binary_dot import crumb_affinity_cuda, sign_hamming_cuda
+    from repro_torch.kernels.gather_dot import gather_nibble_dot_cuda
     from repro_torch.kernels.nibble_dot import nibble_dot_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,7 +180,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    built = cuda_build.build(["hadamard", "nibble_dot"])
+    built = cuda_build.build(["hadamard", "nibble_dot", "binary_dot", "gather_dot"])
     build_s = time.perf_counter() - t0
     for name, info in built.items():
         say(f"build {name}: {info['seconds']:.2f} s")
@@ -211,8 +253,74 @@ def main() -> int:
     expect(bool(torch.equal(again, main_got)), "scan is not repeatable")
     del main_packed, main_q, main_got, part, again
     torch.cuda.empty_cache()
+
+    # The binarized proxies are integers: each kernel must equal its plain
+    # version bit for bit.
+    proxy_fns = {"sign": (sign_hamming_cuda, ref.sign_hamming_ref, 8),
+                 "crumb": (crumb_affinity_cuda, ref.crumb_affinity_ref, 4)}
+    proxy_err = {}
+
+    def check_proxy(kind: str, b: int, n: int, d_pad: int) -> None:
+        fn, plain, dims_per_byte = proxy_fns[kind]
+        width = d_pad // dims_per_byte
+        codes = torch.from_numpy(rng.integers(0, 256, size=(n, width), dtype=np.uint8)).to(dev)
+        qcodes = torch.from_numpy(rng.integers(0, 256, size=(b, width), dtype=np.uint8)).to(dev)
+        got = fn(codes, qcodes)
+        want = plain(codes, qcodes)
+        ok = (got.dtype == torch.int32 and got.shape == (b, n)
+              and bool(torch.equal(got, want)))
+        proxy_err[kind] = max(proxy_err.get(kind, 0.0),
+                              float((got.long() - want.long()).abs().max()))
+        say(f"{kind:<6} b={b:>3} n={n:>7} d'={d_pad:>5}: "
+            f"{'bit-equal' if ok else 'MISMATCH'}")
+        expect(ok, f"{kind} kernel differs from its plain version at b={b} n={n} d'={d_pad}")
+
+    for kind in proxy_fns:
+        for b in (1, 7, 64):
+            for n in (1, 300, N):
+                check_proxy(kind, b, n, 1024)
+        for d_pad in (8, 16):
+            check_proxy(kind, 7, 300, d_pad)
+        check_proxy(kind, 64, BIG_N, 1024)
+    torch.cuda.empty_cache()
+
+    def check_gather(b: int, m: int, d_pad: int, n: int) -> float:
+        packed = torch.from_numpy(
+            rng.integers(0, 256, size=(n, d_pad // 2), dtype=np.uint8)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d_pad), dtype=np.float32)).to(dev)
+        cand = torch.from_numpy(rng.integers(0, n, size=(b, m)).astype(np.int32)).to(dev)
+        cand[:, 3::7] = -1                 # dead candidates score 0, rows never read
+        valid = cand >= 0
+        got = gather_nibble_dot_cuda(packed, q, cand)
+        want = ref.gather_nibble_dot_ref(packed, q, cand)
+        absdeq = deq_table.abs()[qz.unpack_4bit(packed[cand.long().clamp(min=0)]).long()]
+        tol = 1e-5 * torch.einsum("bd,bmd->bm", q.abs(), absdeq) + 1e-6
+        del absdeq
+        err = (got - want).abs()
+        ok = (got.shape == (b, m) and bool(torch.isfinite(got).all())
+              and bool((err <= tol).all()))
+        full = nibble_dot_cuda(packed, q).gather(1, cand.long().clamp(min=0))
+        same = bool(torch.equal(got[valid], full[valid])) and bool((got[~valid] == 0).all())
+        worst = float(err.max())
+        say(f"gather b={b:>3} m={m:>4} d'={d_pad:>5}: max|err|={worst:.3e} "
+            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}; byte-equal to the "
+            f"full scan at the same rows: {same}")
+        expect(ok, f"gather kernel disagrees at b={b} m={m} d'={d_pad}")
+        expect(same, f"gather kernel is not byte-equal to the full scan at b={b} m={m}")
+        return worst
+
+    gather_err = 0.0
+    for b in (1, 7, 64):
+        for m in (1, 80, 320):
+            worst = check_gather(b, m, 1024, N)
+            if (b, m) == (64, 320):
+                gather_err = worst
+    check_gather(7, 80, 16, 300)
+    torch.cuda.empty_cache()
     report["kernel_checks"] = {"fwht_main_max_abs_err": fwht_err["main"],
-                               "scan_main_max_abs_err": scan_err}
+                               "scan_main_max_abs_err": scan_err,
+                               "proxy_max_abs_err": proxy_err,
+                               "gather_main_max_abs_err": gather_err}
 
     # ---- 4. the main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -221,22 +329,31 @@ def main() -> int:
     say(f"data: corpus {corpus.shape} queries {queries.shape} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    hadamard.fwht_cuda.launches = 0
-    nibble_dot_cuda.launches = 0
+    # Every kernel's launch counter; each path runs between a reset and a read.
+    counters = {"fwht": hadamard.fwht_cuda, "nibble_dot": nibble_dot_cuda,
+                "sign_hamming": sign_hamming_cuda, "crumb_affinity": crumb_affinity_cuda,
+                "gather_nibble_dot": gather_nibble_dot_cuda}
+
+    def reset_counts() -> None:
+        for counter in counters.values():
+            counter.launches = 0
+
+    def read_counts() -> dict:
+        return {name: counter.launches for name, counter in counters.items()}
+
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     idx = MonaVec.build(corpus, metric="cosine")
     torch.cuda.synchronize()
     main_build_s = time.perf_counter() - t0
-    build_launches = {"fwht": hadamard.fwht_cuda.launches,
-                      "nibble_dot": nibble_dot_cuda.launches}
+    build_launches = read_counts()
     results = []
     t0 = time.perf_counter()
     for i in range(BATCHES):
         results.append(idx.search(queries[64 * i: 64 * (i + 1)], k=10))
     main_search_s = time.perf_counter() - t0
-    launches = {"fwht": hadamard.fwht_cuda.launches,
-                "nibble_dot": nibble_dot_cuda.launches}
+    launches = read_counts()
     search_launches = {k: launches[k] - build_launches[k] for k in launches}
     say(f"main path: build {N}x{DIM} in {main_build_s:.3f} s, "
         f"{BATCHES} searches of 64 in {main_search_s:.3f} s")
@@ -313,10 +430,90 @@ def main() -> int:
                            "max_score_diff_cpu": score_err, "flips": flips}
     del codes_kernel, codes_plain, codes_cpu
 
+    # ---- 4b. the cascade path -------------------------------------------------
+    proxy_counter = {"sign": "sign_hamming", "crumb": "crumb_affinity"}
+    cascade_launches = dict.fromkeys(counters, 0)
+    # The full scan's scores of every row, per batch as the searches run.
+    full_scores = torch.cat([idx.backend.scores(qt[64 * i: 64 * (i + 1)])
+                             for i in range(BATCHES)])
+    cpu_base = MonaVec.from_arrays(enc.packed.cpu().numpy(), enc.qnorms.cpu().numpy(),
+                                   seed=enc.seed, metric=enc.metric, bits=enc.bits,
+                                   dim=enc.dim, dim_pad=enc.dim_pad, device="cpu")
+    cascades = {}
+    report["cascade"] = {}
+    for kind in ("sign", "crumb"):
+        cidx = MonaVec(idx.backend).enable_coarse(kind)
+        cascades[kind] = cidx
+        cpu_idx = MonaVec(cpu_base.backend).enable_coarse(kind)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as td:
+            path = str(Path(td) / f"cascade-{kind}.mvec")
+            cidx.save(path)
+            loaded = MonaVec.load(path)
+        for rm in RESCORE_MULTS:
+            label = f"cascade {kind} rescore_mult={rm}"
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [cidx.search(queries[64 * i: 64 * (i + 1)], k=10, rescore_mult=rm)
+                   for i in range(BATCHES)]
+            run_s = time.perf_counter() - t0
+            got = read_counts()
+            for name in counters:
+                cascade_launches[name] += got[name]
+            say(f"{label}: {BATCHES} searches of 64 in {run_s:.3f} s; launches {got}")
+            expect(got[proxy_counter[kind]] > 0, f"{label}: the {kind} kernel was not launched")
+            expect(got["gather_nibble_dot"] > 0, f"{label}: the gather kernel was not launched")
+            expect(got["nibble_dot"] == 0, f"{label}: the full-scan kernel ran in the cascade")
+
+            c_scores = np.concatenate([r[0] for r in res])
+            c_ids = np.concatenate([r[1] for r in res])
+            expect(c_scores.shape == (64 * BATCHES, 10) and np.isfinite(c_scores).all()
+                   and bool((c_ids < N).all()), f"{label}: scores or ids out of contract")
+            c_recall = recall_of(c_ids)
+            vs_full = float(np.mean([len(set(a) & set(b)) / 10.0 for a, b in zip(c_ids, ids)]))
+            cpu_s, cpu_i = cpu_idx.search(queries, k=10, rescore_mult=rm)
+            c_recall_cpu = recall_of(cpu_i)
+            c_same = float(np.mean(cpu_i == c_ids))
+            rows = torch.from_numpy(c_ids.astype(np.int64)).to(dev)
+            scan_scores = full_scores.gather(1, rows).cpu().numpy()
+            scores_equal = scan_scores.tobytes() == c_scores.tobytes()
+            s2, i2 = cidx.search(queries[:64], k=10, rescore_mult=rm)
+            repeat = s2.tobytes() == res[0][0].tobytes() and i2.tobytes() == res[0][1].tobytes()
+            s3, i3 = loaded.search(queries[:64], k=10, rescore_mult=rm)
+            reload = np.array_equal(s3, res[0][0]) and np.array_equal(i3, res[0][1])
+            say(f"{label}: recall@10 {c_recall:.4f} vs exact, {vs_full:.4f} vs the full "
+                f"scan's ids; CPU plain cascade recall@10 {c_recall_cpu:.4f}, ids equal in "
+                f"{c_same:.4%} of slots, max|score diff| "
+                f"{float(np.max(np.abs(cpu_s - c_scores))):.3e}; scores byte-equal to the "
+                f"full scan's: {scores_equal}; repeat byte-identical: {repeat}; "
+                f"v10 save -> load -> search equal: {reload}")
+            expect(abs(c_recall - c_recall_cpu) <= 0.01,
+                   f"{label}: recall differs from the CPU plain cascade")
+            expect(c_same >= 0.99, f"{label}: ids differ from the CPU plain cascade in over "
+                                   f"1% of slots")
+            expect(scores_equal, f"{label}: a returned score differs from the full scan's")
+            expect(repeat, f"{label}: a repeated search gave other bytes")
+            expect(reload, f"{label}: v10 save -> load -> search differs")
+            report["cascade"][f"{kind}_{rm}"] = {
+                "launches": got, "search_s": run_s, "recall_at_10": c_recall,
+                "recall_vs_full_scan": vs_full, "recall_at_10_cpu": c_recall_cpu,
+                "ids_equal_cpu": c_same, "scores_equal_full_scan": scores_equal}
+        del loaded, cpu_idx
+    del full_scores, cpu_base
+    torch.cuda.empty_cache()
+
     # ---- 5. timing -----------------------------------------------------------
     # The 23 MB corpus stays in the 50 MB L2 between launches, as it does
     # between the searches of a server; the [45000, 1024] rotation does not.
-    def time_ms(fn, iters: int = 50, warmup: int = 5) -> dict:
+    # A sample is `reps` launches between two CUDA events, after the last
+    # sample has finished, divided by `reps`.  The kernels line's ms, plain_ms
+    # and library_ms take one launch per sample, so a short kernel is charged
+    # its wrapper's host dispatch too.  Each kernel is also timed with B2B
+    # back-to-back launches per sample, where the host queues the next launch
+    # while the card runs this one ("b2b" below).
+    B2B = 10
+
+    def time_ms(fn, iters: int = 50, warmup: int = 5, reps: int = 1) -> dict:
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -325,21 +522,23 @@ def main() -> int:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(reps):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / reps)
         times.sort()
         # The highest percentile with at least ten samples beyond it.
         p = 1.0 - 10.0 / iters
         return {"median": times[iters // 2], "p": p, "p_ms": times[int(p * iters) - 1],
-                "samples": iters}
+                "samples": iters, "launches_per_sample": reps}
 
     d_pad = enc.dim_pad
     b = 64
     q_rot = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), enc).contiguous()
     deq_f32 = qz.decode(enc)
     t_scan = time_ms(lambda: nibble_dot_cuda(enc.packed, q_rot))
+    t_scan_b2b = time_ms(lambda: nibble_dot_cuda(enc.packed, q_rot), reps=B2B)
     t_scan_plain = time_ms(lambda: ref.nibble_dot_ref(enc.packed, q_rot), iters=20)
     t_scan_lib = time_ms(lambda: torch.matmul(q_rot, deq_f32.T))
     del deq_f32
@@ -352,6 +551,7 @@ def main() -> int:
     h_dense = torch.tensor(rhdh.hadamard_matrix(d_pad), device=dev)
     xs = (rhdh.pad_to_pow2(x, d_pad) * signs).contiguous()
     t_fwht = time_ms(lambda: hadamard.fwht_cuda(x, signs, d_pad))
+    t_fwht_b2b = time_ms(lambda: hadamard.fwht_cuda(x, signs, d_pad), reps=B2B)
     t_fwht_plain = time_ms(lambda: hadamard.signed_fwht_plain(x, signs, d_pad))
     t_fwht_lib = time_ms(lambda: torch.matmul(xs, h_dense))
     del xs, h_dense
@@ -360,21 +560,100 @@ def main() -> int:
         ops=float(x.shape[0]) * d_pad * math.log2(d_pad))
     del x
 
-    for name, t, tp, tl, bnd in (("scan", t_scan, t_scan_plain, t_scan_lib, scan_bound),
-                                 ("fwht", t_fwht, t_fwht_plain, t_fwht_lib, fwht_bound)):
+    # The cascade's kernels.  Yardsticks, timed only: the proxies as one f32
+    # matmul of the +-1 sign planes (= d' - 2 hamming) or of the crumb level
+    # planes {-3, -1, 1, 3} (= the affinity); the rescore as one bmm of the
+    # pre-gathered f32 rows.  All are integers below 2^24, so f32 is exact.
+    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+
+    def bit_plane(codes: torch.Tensor) -> torch.Tensor:
+        """[rows, w] packed bits -> [rows, 8 w] f32 of 0/1, little-endian."""
+        return ((codes[..., None] >> shifts) & 1).reshape(codes.shape[0], -1).float()
+
+    def yardstick_planes(kind: str, codes: torch.Tensor) -> torch.Tensor:
+        if kind == "sign":
+            return 2 * bit_plane(codes) - 1
+        half = codes.shape[1] // 2
+        return 4 * bit_plane(codes[:, :half]) + 2 * bit_plane(codes[:, half:]) - 3
+
+    def time_proxy(kind: str, codes: torch.Tensor, qcodes: torch.Tensor,
+                   plain_iters: int) -> dict:
+        fn, plain, _ = proxy_fns[kind]
+        n_rows, d_p = codes.shape[0], d_pad
+        t = time_ms(lambda: fn(codes, qcodes))
+        t_b2b = time_ms(lambda: fn(codes, qcodes), reps=B2B)
+        tp = time_ms(lambda: plain(codes, qcodes), iters=plain_iters, warmup=1)
+        pc, pq = yardstick_planes(kind, codes), yardstick_planes(kind, qcodes)
+        lib_out = torch.matmul(pq, pc.T)
+        want = fn(codes, qcodes)
+        same = bool(torch.equal(lib_out, (d_p - 2 * want if kind == "sign" else want).float()))
+        expect(same, f"the {kind} yardstick does not compute the {kind} proxy")
+        tl = time_ms(lambda: torch.matmul(pq, pc.T))
+        del pc, pq, lib_out
+        b_q = qcodes.shape[0]
+        # The bound: the codes, the query codes and the int32 output once,
+        # against the proxy as the exact int8 product the yardstick above
+        # computes (2 b n d' operations) at the int8 tensor-core rate.
+        bnd, by = bound_ms(nbytes=codes.numel() + qcodes.numel() + 4.0 * b_q * n_rows,
+                           ops=2.0 * b_q * n_rows * d_p, ops_per_s=PEAK_INT8_OPS_PER_S)
+        # A design figure: the 32-bit popcounts this kernel issues (4 per word
+        # pair for crumb, plus its per-row and per-query plane counts) at the
+        # CUDA cores' __popc rate.
+        words = d_p // 32
+        pops = (b_q * n_rows * words if kind == "sign"
+                else 4 * b_q * n_rows * words + 2 * (n_rows + b_q) * words)
+        return {"kernel": t, "b2b": t_b2b, "plain": tp, "library": tl, "bound_ms": bnd,
+                "bound_by": by, "rows": n_rows, "popcounts": pops,
+                "popc_unit_ms": 1e3 * pops / PEAK_POPC_PER_S}
+
+    timing_new = {}
+    qcodes_main = {"sign": binary.query_sign_bits(q_rot),
+                   "crumb": binary.query_crumb_planes(q_rot)}
+    for kind in ("sign", "crumb"):
+        timing_new[kind] = time_proxy(kind, cascades[kind].backend.enc.ccodes,
+                                      qcodes_main[kind], plain_iters=20)
+        width = cascades[kind].backend.enc.ccodes.shape[1]
+        big_codes = torch.from_numpy(
+            rng.integers(0, 256, size=(BIG_N, width), dtype=np.uint8)).to(dev)
+        timing_new[f"{kind}_1m"] = time_proxy(kind, big_codes, qcodes_main[kind],
+                                              plain_iters=11)
+        del big_codes
+        torch.cuda.empty_cache()
+
+    live_all = torch.ones(enc.n, dtype=torch.bool, device=dev)
+    sign_proxy = binary.coarse_scan_stage(q_rot, cascades["sign"].backend.enc.ccodes,
+                                          kind="sign")
+    for m in (10 * rm for rm in RESCORE_MULTS):
+        cand = binary.survivor_topk_stage(sign_proxy, live_all, m=m)
+        t = time_ms(lambda: gather_nibble_dot_cuda(enc.packed, q_rot, cand))
+        t_b2b = time_ms(lambda: gather_nibble_dot_cuda(enc.packed, q_rot, cand), reps=B2B)
+        tp = time_ms(lambda: ref.gather_nibble_dot_ref(enc.packed, q_rot, cand), iters=20)
+        rows_f32 = lloydmax.dequantize(qz.unpack_4bit(enc.packed[cand.long()]), 4)
+        tl = time_ms(lambda: torch.bmm(rows_f32, q_rot[:, :, None]))
+        del rows_f32
+        bnd, by = bound_ms(nbytes=b * m * d_pad / 2 + 4.0 * b * d_pad + 8.0 * b * m + 64,
+                           ops=2.0 * b * m * d_pad)
+        timing_new[f"gather_{m}"] = {"kernel": t, "b2b": t_b2b, "plain": tp, "library": tl,
+                                     "bound_ms": bnd, "bound_by": by}
+    del sign_proxy
+
+    timing_old = {
+        "scan": {"kernel": t_scan, "b2b": t_scan_b2b, "plain": t_scan_plain,
+                 "library": t_scan_lib, "bound_ms": scan_bound, "bound_by": scan_by},
+        "fwht": {"kernel": t_fwht, "b2b": t_fwht_b2b, "plain": t_fwht_plain,
+                 "library": t_fwht_lib, "bound_ms": fwht_bound, "bound_by": fwht_by}}
+    for name, e in {**timing_old, **timing_new}.items():
+        t = e["kernel"]
+        popc = (f", __popc-unit figure {e['popc_unit_ms']:.4f} ms" if "popc_unit_ms" in e
+                else "")
         say(f"time {name}: kernel {t['median']:.4f} ms (p{round(100 * t['p'])} "
-            f"{t['p_ms']:.4f}, {t['samples']} samples), plain {tp['median']:.4f} ms, "
-            f"library {tl['median']:.4f} ms, bound {bnd:.4f} ms")
+            f"{t['p_ms']:.4f}, {t['samples']} samples of one launch), back-to-back "
+            f"{e['b2b']['median']:.4f} ms ({B2B} launches a sample), plain "
+            f"{e['plain']['median']:.4f} ms, library {e['library']['median']:.4f} ms, "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}){popc}")
 
     # End to end: search rate over timed batches of 64, and the encode rate.
-    lat = []
-    for i in range(100):
-        qb = queries[64 * (i % BATCHES): 64 * (i % BATCHES + 1)]
-        t0 = time.perf_counter()
-        idx.search(qb, k=10)
-        lat.append(time.perf_counter() - t0)
-    lat.sort()
-    qps = 64 * len(lat) / sum(lat)
+    full_lat = batch_latencies(lambda qb: idx.search(qb, k=10), queries, 100)
     builds = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -383,17 +662,15 @@ def main() -> int:
         torch.cuda.synchronize()
         builds.append(time.perf_counter() - t0)
     encode_s = sorted(builds)[2]
-    say(f"search: {qps:.1f} queries/s over {len(lat)} batches of 64; batch latency "
-        f"median {1e3 * lat[50]:.3f} ms p90 {1e3 * lat[89]:.3f} ms")
+    say(f"search: {full_lat['qps']:.1f} queries/s over {full_lat['batches']} batches of 64; "
+        f"batch latency median {full_lat['median_ms']:.3f} ms p90 {full_lat['p90_ms']:.3f} ms")
     say(f"encode: {N / encode_s:.1f} rows/s ({N}x{DIM} from host numpy, "
         f"median of 5 builds: {encode_s:.4f} s)")
     report["timing"] = {
-        "scan": {"kernel": t_scan, "plain": t_scan_plain, "library": t_scan_lib,
-                 "bound_ms": scan_bound, "bound_by": scan_by},
-        "fwht": {"kernel": t_fwht, "plain": t_fwht_plain, "library": t_fwht_lib,
-                 "bound_ms": fwht_bound, "bound_by": fwht_by},
-        "search_qps": qps, "search_batch_ms_median": 1e3 * lat[50],
-        "search_batch_ms_p90": 1e3 * lat[89], "encode_rows_per_s": N / encode_s,
+        **timing_old,
+        "search_qps": full_lat["qps"], "search_batch_ms_median": full_lat["median_ms"],
+        "search_batch_ms_p90": full_lat["p90_ms"], "encode_rows_per_s": N / encode_s,
+        **timing_new,
     }
     report["profile"] = {
         "search": profile_window(torch, lambda: [
@@ -404,12 +681,54 @@ def main() -> int:
     }
     # An estimate, not a measurement: the traced device time per batch over
     # the untraced median batch latency.
-    busy_per_batch_ms = report["profile"]["search"]["device_busy_us"] / BATCHES / 1e3
-    idle_est = max(0.0, 1.0 - busy_per_batch_ms / (1e3 * lat[50]))
-    report["profile"]["search"]["idle_share_untraced_estimate"] = idle_est
-    say(f"search idle share, estimated untraced: {idle_est:.3f} (traced device time "
-        f"{busy_per_batch_ms:.4f} ms per batch over the untraced median batch latency "
-        f"{1e3 * lat[50]:.4f} ms)")
+    def idle_estimate(window: dict, latency: dict, label: str) -> None:
+        busy_per_batch_ms = window["device_busy_us"] / BATCHES / 1e3
+        idle_est = max(0.0, 1.0 - busy_per_batch_ms / latency["median_ms"])
+        window["idle_share_untraced_estimate"] = idle_est
+        say(f"{label} idle share, estimated untraced: {idle_est:.3f} (traced device time "
+            f"{busy_per_batch_ms:.4f} ms per batch over the untraced median batch latency "
+            f"{latency['median_ms']:.4f} ms)")
+
+    idle_estimate(report["profile"]["search"], full_lat, "search")
+
+    # The cascade end to end, beside the full scan above.
+    report["cascade_timing"] = {}
+    for kind, cidx in cascades.items():
+        for rm in RESCORE_MULTS:
+            label = f"cascade {kind} rescore_mult={rm}"
+            lat_c = batch_latencies(
+                lambda qb: cidx.search(qb, k=10, rescore_mult=rm), queries, 100)
+            say(f"{label}: {lat_c['qps']:.1f} queries/s over {lat_c['batches']} batches "
+                f"of 64; batch latency median {lat_c['median_ms']:.3f} ms p90 "
+                f"{lat_c['p90_ms']:.3f} ms ({lat_c['qps'] / full_lat['qps']:.2f}x the full "
+                f"scan's rate)")
+            window = profile_window(torch, lambda: [
+                cidx.search(queries[64 * i: 64 * (i + 1)], k=10, rescore_mult=rm)
+                for i in range(BATCHES)], f"{label}, {BATCHES} searches of 64", top=8)
+            idle_estimate(window, lat_c, label)
+            report["cascade_timing"][f"{kind}_{rm}"] = {"latency": lat_c, "profile": window}
+
+    # n=1,000,000 random codes: the full scan against each cascade, timing only.
+    big_rng = np.random.default_rng(SEED + 2)
+    big = MonaVec.from_arrays(
+        big_rng.integers(0, 256, size=(BIG_N, DIM // 2), dtype=np.uint8),
+        np.ones(BIG_N, np.float32), seed=SEED, metric="cosine", bits=4, dim=DIM,
+        dim_pad=DIM)
+    big_q = big_rng.standard_normal((64 * BATCHES, DIM), dtype=np.float32)
+    big_lat = {"full": batch_latencies(lambda qb: big.search(qb, k=10), big_q, BIG_BATCHES)}
+    for kind in ("sign", "crumb"):
+        big_c = MonaVec(big.backend).enable_coarse(kind)
+        for rm in RESCORE_MULTS:
+            big_lat[f"{kind}_{rm}"] = batch_latencies(
+                lambda qb: big_c.search(qb, k=10, rescore_mult=rm), big_q, BIG_BATCHES)
+        del big_c
+    for name, lat_b in big_lat.items():
+        say(f"n={BIG_N} {name}: batch latency median {lat_b['median_ms']:.3f} ms p90 "
+            f"{lat_b['p90_ms']:.3f} ms, {lat_b['qps']:.1f} queries/s over "
+            f"{lat_b['batches']} batches of 64")
+    report["big_n_latency"] = big_lat
+    del big
+    torch.cuda.empty_cache()
 
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
@@ -425,6 +744,20 @@ def main() -> int:
          "ms": t_fwht["median"], "plain_ms": t_fwht_plain["median"],
          "bound_ms": fwht_bound, "bound_by": fwht_by, "library_ms": t_fwht_lib["median"]},
     ]
+    new_kernels = (("sign_hamming", "binary_dot", "binary_dot.py:93", "sign",
+                    proxy_err["sign"]),
+                   ("crumb_affinity", "binary_dot", "binary_dot.py:196", "crumb",
+                    proxy_err["crumb"]),
+                   ("gather_nibble_dot", "gather_dot", "gather_dot.py:89",
+                    f"gather_{10 * max(RESCORE_MULTS)}", gather_err))
+    for name, source, replaces, key, err in new_kernels:
+        entry = timing_new[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": cascade_launches[name],
+            "max_abs_err": err, "ms": entry["kernel"]["median"],
+            "plain_ms": entry["plain"]["median"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"], "library_ms": entry["library"]["median"]})
     report["kernels"] = kernels
     report["failures"] = FAILURES
     if args.json:

@@ -2,7 +2,8 @@
 
 Applied BEFORE top-k, never after, so a selective allowlist still returns
 min(k, |allowlist|) real results.  The mask over row positions is built on
-the host from external ids and moved to the scores' device when applied.
+the host from external ids and copied to a device once, at its first use
+there: a fresh host-to-device copy on every search would wait for the stream.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ class Allowlist:
 
     mask: np.ndarray  # [n] bool over row positions
     n_allowed: int
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @staticmethod
     def from_ids(
@@ -46,7 +48,12 @@ class Allowlist:
             mask = np.isin(index_ids, allowed)
         return Allowlist(mask=mask, n_allowed=int(mask.sum()))
 
+    def mask_on(self, device: torch.device) -> torch.Tensor:
+        """The mask as a bool tensor on ``device``, copied there once."""
+        if device not in self._on_device:
+            self._on_device[device] = torch.as_tensor(self.mask, dtype=torch.bool).to(device)
+        return self._on_device[device]
+
     def apply(self, scores: torch.Tensor) -> torch.Tensor:
         """Mask scores of disallowed rows to NEG (pre-top-k)."""
-        mask = torch.as_tensor(self.mask, device=scores.device)
-        return torch.where(mask, scores, torch.tensor(NEG, device=scores.device))
+        return torch.where(self.mask_on(scores.device), scores, float(NEG))

@@ -4,10 +4,14 @@
     scores, ids = idx.search(queries, k=10)
     idx.save("corpus.mvec");  idx2 = MonaVec.load("corpus.mvec")
 
+    idx = MonaVec.build(vectors, coarse="sign")           # or "crumb"
+    scores, ids = idx.search(queries, k=10, rescore_mult=8)   # the cascade
+
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 The index lives on that device; ids and results come back as numpy arrays
-on the host.  IVF and HNSW are ROADMAP A7 and A8; mutation, metadata,
-the binarized cascade and autotuning follow them in ROADMAP A.
+on the host.  An index with coarse codes saves as a static v10 file, one
+without as v6.  IVF and HNSW are ROADMAP A7 and A8; mutation, metadata and
+autotuning are A4, A6 and A11.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import binary
 from . import mvec_format as fmt
 from .allowlist import Allowlist
 from .bruteforce import BruteForceIndex
@@ -58,13 +63,20 @@ class MonaVec:
         bits: int = 4,
         std: Optional[GlobalStd] = None,
         ids: Optional[np.ndarray] = None,
+        coarse: Optional[str] = None,
         device: torch.device | str = "cuda",
     ) -> "MonaVec":
+        if coarse is not None and index != "bruteforce":
+            raise ValueError("coarse= (the binarized cascade) requires the bruteforce "
+                             f"index, got index={index!r}")
         _require_bruteforce(index)
         dev = resolve_device(device)
         x = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
-        return MonaVec(BruteForceIndex.build(x, metric=metric, seed=seed, bits=bits,
-                                             std=std, ids=ids))
+        idx = MonaVec(BruteForceIndex.build(x, metric=metric, seed=seed, bits=bits,
+                                            std=std, ids=ids))
+        if coarse is not None:
+            idx.enable_coarse(coarse)
+        return idx
 
     @staticmethod
     def from_arrays(
@@ -99,13 +111,32 @@ class MonaVec:
     def ids(self) -> np.ndarray:
         return self.backend.ids
 
+    # -- the binarized cascade ---------------------------------------------
+
+    def enable_coarse(self, kind: str = "sign") -> "MonaVec":
+        """Derive and attach the binarized coarse code ("sign" or "crumb"), in
+        place: a pure function of the packed codes, so enabling it on a loaded
+        v6 index gives the codes a ``coarse=`` build would have saved.
+        Unlocks ``search(..., rescore_mult=r)``."""
+        self.backend = dataclasses.replace(
+            self.backend, enc=binary.attach_coarse(self.backend.enc, kind))
+        return self
+
+    def resolved_knobs(self, k: int = 10, **kwargs) -> dict:
+        """The knobs ``search(queries, k, **kwargs)`` runs with, after the
+        ``rescore_mult`` rules; an empty dict means the full scan."""
+        from ..engine.plan import resolve_knobs
+        return resolve_knobs(self.backend, k, **kwargs)
+
     # -- search ------------------------------------------------------------
 
-    def search(self, queries, k: int = 10, *,
-               allow: Optional[Allowlist] = None) -> Tuple[np.ndarray, np.ndarray]:
-        """Top-k: rotate -> scan -> adjust -> allowlist mask -> stable top-k.
-        Always exactly ``k`` columns; inadmissible slots carry SENTINEL_ID/NEG."""
-        return self.backend.search(queries, k, allow=allow)
+    def search(self, queries, k: int = 10, *, allow: Optional[Allowlist] = None,
+               rescore_mult: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k: rotate -> scan -> adjust -> allowlist mask -> stable top-k,
+        or with ``rescore_mult=r`` the cascade: coarse proxy -> r*k survivors
+        -> gathered 4-bit rescore -> stable top-k.  Always exactly ``k``
+        columns; inadmissible slots carry SENTINEL_ID/NEG."""
+        return self.backend.search(queries, k, allow=allow, rescore_mult=rescore_mult)
 
     # -- persistence -------------------------------------------------------
 

@@ -2,7 +2,9 @@
 
 Zero build time beyond the encode, deterministic, memory-compact: the
 paper's default index.  The scan is ``ops.score_raw``, which on the card is
-the 4-bit CUDA kernel; ``search`` routes through ``engine.search_backend``.
+the 4-bit CUDA kernel; ``search`` routes through ``engine.search_backend``,
+which runs the binarized cascade instead when ``rescore_mult`` asks for it
+and the index carries coarse codes.
 """
 
 from __future__ import annotations
@@ -48,9 +50,9 @@ class BruteForceIndex:
         q_rot = qz.encode_query(torch.atleast_2d(queries), self.enc)
         return ops.score_packed(q_rot, self.enc)
 
-    def search(self, queries, k: int, *,
-               allow: Optional[Allowlist] = None) -> Tuple[np.ndarray, np.ndarray]:
+    def search(self, queries, k: int, *, allow: Optional[Allowlist] = None,
+               rescore_mult: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         """(scores [b, k], external ids [b, k]); stable top-k, and slots with
         no admissible row carry SENTINEL_ID and a NEG score."""
         from ..engine.plan import search_backend
-        return search_backend(self, queries, k, allow=allow)
+        return search_backend(self, queries, k, allow=allow, rescore_mult=rescore_mult)

@@ -7,6 +7,8 @@ gives the same codes on every device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -59,6 +61,12 @@ def boundaries(bits: int) -> np.ndarray:
     return _TABLES[bits][1]
 
 
+@functools.lru_cache(maxsize=8)
+def _boundaries_on(bits: int, device: torch.device) -> torch.Tensor:
+    # Cached: a fresh host-to-device copy per query would wait for the stream.
+    return torch.as_tensor(boundaries(bits), device=device)
+
+
 def quantize(x: torch.Tensor, bits: int = 4) -> torch.Tensor:
     """Map values to codes in [0, 2^bits): the count of boundaries <= x.
 
@@ -66,8 +74,8 @@ def quantize(x: torch.Tensor, bits: int = 4) -> torch.Tensor:
     ``jnp.searchsorted(side='right')``: the nearest-centroid rule for
     boundaries at centroid midpoints.  Integer output, no float reduction.
     """
-    b = torch.as_tensor(boundaries(bits), device=x.device)
-    return torch.searchsorted(b, x.contiguous(), right=True).to(torch.uint8)
+    return torch.searchsorted(_boundaries_on(bits, x.device), x.contiguous(),
+                              right=True).to(torch.uint8)
 
 
 def dequantize(codes: torch.Tensor, bits: int = 4) -> torch.Tensor:

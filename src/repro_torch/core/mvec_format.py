@@ -1,5 +1,5 @@
-"""`.mvec` single-file index format, version 6 (subset of
-``repro/core/mvec_format.py``; paper §3.8).
+"""`.mvec` single-file index format, versions 6 and static 10 (subset of
+``repro/core/mvec_format.py``; paper §3.8, DESIGN.md §11).
 
 A fixed 56-byte little-endian header, then length-prefixed blocks:
 
@@ -15,13 +15,22 @@ A fixed 56-byte little-endian header, then length-prefixed blocks:
     32  N4_DIMS     u32
     36  INDEX_PARAMS 8B  (u32, u32)
     44  HAS_STD     u8   1 if the global standardization block follows
-    45  (11 bytes)       zero in version 6
+    45  HAS_PERM    u8   0 (a permutation block is ROADMAP A3)
+    46  COARSE_KIND u8   v10: 1=sign 2=crumb (0 in version 6)
+    47  HAS_META    u8   v10: 0 (metadata columns are ROADMAP A6)
+    48  (8 bytes)        zero
 
 Blocks: STD_MEAN [f32 x dim] and STD_INV_STD [f32 x dim] (if HAS_STD), then
 VECTORS [u8], IDS [u64], NORMS [f32] (each with a u64 byte length), then
-INDEX_DATA (u64 length + bytes).  Every read is checked against the bytes
-present, so a truncated or garbage-tailed file raises ValueError naming the
-block.  Versions 7-11 are ROADMAP A3, A4, A6, A9 and A11.
+INDEX_DATA (u64 length + bytes).  An index with coarse codes is written as
+version 10: the v6 body, then the segment table of version 8 with no extra
+segment (SEG_COUNT u32 = 0) and the base segment's all-zero tombstone
+bitmap (u64 length + packbits bytes), then the CODE block [u8, n x
+code_bytes].  Every read is checked against the bytes present, so a
+truncated or garbage-tailed file raises ValueError naming the block.  A
+file the port cannot represent raises NotImplementedError naming the
+ROADMAP item: version 7 (A3), 8 and a v10 file with extra segments or
+tombstones (A4), 9 and metadata columns (A6), 11 (A11).
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from . import quantize as qz
+from .binary import code_bytes
 from .rhdh import next_pow2
 from .standardize import COSINE, DOT, L2, GlobalStd
 
@@ -42,6 +52,11 @@ MAGIC = b"MVEC"
 HEADER_LEN = 56
 HEADER_FMT = "<4sIIBBBBQQIIIBB10s"
 VERSION = 6
+VERSION_COARSE = 10
+_COARSE_CODE = {"sign": 1, "crumb": 2}
+_COARSE_NAME = {v: k for k, v in _COARSE_CODE.items()}
+_UNPORTED_VERSION = {7: "A3: mixed-precision permutation", 8: "A4: segments and tombstones",
+                     9: "A6: metadata columns", 11: "A11: autotune results"}
 _METRIC_CODE = {COSINE: 0, DOT: 1, L2: 2}
 _METRIC_NAME = {v: k for k, v in _METRIC_CODE.items()}
 INDEX_BRUTEFORCE, INDEX_IVF, INDEX_HNSW = 0, 1, 2
@@ -70,6 +85,9 @@ class _Reader:
                 f"offset {self.pos}, only {len(chunk)} available")
         self.pos += nbytes
         return chunk
+
+    def u32(self, name: str) -> int:
+        return struct.unpack("<I", self.take(4, name))[0]
 
     def u64(self, name: str) -> int:
         return struct.unpack("<Q", self.take(8, name))[0]
@@ -104,14 +122,17 @@ class MvecFile:
 
 
 def save(path: str, f: MvecFile) -> None:
+    """Write version 6, or static version 10 when ``f.enc`` carries coarse codes."""
     enc = f.enc
     has_std = enc.std is not None
+    has_codes = enc.ccodes is not None
     header = struct.pack(
-        HEADER_FMT, MAGIC, VERSION, enc.dim,
+        HEADER_FMT, MAGIC, VERSION_COARSE if has_codes else VERSION, enc.dim,
         _METRIC_CODE[enc.metric], enc.bits, f.index_type, 0,
         enc.n, enc.seed & 0xFFFFFFFFFFFFFFFF,
         enc.n4_dims, f.index_param, f.index_param2,
-        1 if has_std else 0, 0, b"\x00" * 10,
+        1 if has_std else 0, 0,
+        bytes([_COARSE_CODE[enc.coarse] if has_codes else 0, 0]) + b"\x00" * 8,
     )
     buf = io.BytesIO()
     buf.write(header)
@@ -125,28 +146,64 @@ def save(path: str, f: MvecFile) -> None:
     blob = f.index_data or b""
     buf.write(struct.pack("<Q", len(blob)))
     buf.write(blob)
+    if has_codes:
+        buf.write(struct.pack("<I", 0))                       # no extra segment
+        _write_array(buf, np.packbits(np.zeros(enc.n, dtype=bool)))   # no tombstone
+        _write_array(buf, enc.ccodes.cpu().numpy().astype(np.uint8))
     with open(path, "wb") as fh:
         fh.write(buf.getvalue())
 
 
+def _read_static_coarse(rd: _Reader, count: int, dim_pad: int, kind: str, *,
+                        has_meta: bool) -> np.ndarray:
+    """The v10 tail of a static index: an empty segment table, a clear
+    tombstone bitmap and the CODE block [count, code_bytes] (uint8)."""
+    if rd.u32("segment table"):
+        raise NotImplementedError(".mvec extra segments are not ported yet "
+                                  "(ROADMAP A4: segments and tombstones)")
+    tombs = rd.array(np.uint8, "tombstones[0]", count=(count + 7) // 8)
+    if tombs.any():
+        raise NotImplementedError(".mvec tombstones are not ported yet "
+                                  "(ROADMAP A4: segments and tombstones)")
+    if has_meta:
+        raise NotImplementedError(".mvec metadata columns are not ported yet "
+                                  "(ROADMAP A6: metadata columns)")
+    cb = code_bytes(dim_pad, kind)
+    codes = rd.array(np.uint8, "coarse codes[0]", count=count * cb)
+    return codes.reshape(count, cb).copy()
+
+
 def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
-    """Parse a version-6 file; the codes and norms land on ``device``."""
+    """Parse a version-6 or static version-10 file; the codes, norms and
+    coarse codes land on ``device``."""
     with open(path, "rb") as fh:
         data = fh.read()
     if len(data) < HEADER_LEN:
         raise ValueError(f".mvec truncated in block 'header': need {HEADER_LEN} bytes, "
                          f"only {len(data)} available")
     (magic, version, dim, metric_c, bits, index_type, _pad, count, seed, n4_dims,
-     index_param, param2, has_std, _has_perm, _tail) = struct.unpack(
+     index_param, param2, has_std, has_perm, tail) = struct.unpack(
         HEADER_FMT, data[:HEADER_LEN])
     if magic != MAGIC:
         raise ValueError(f"not a .mvec file (magic={magic!r})")
-    if version != VERSION:
+    if version in _UNPORTED_VERSION:
+        raise NotImplementedError(
+            f".mvec version {version} is not ported yet (ROADMAP {_UNPORTED_VERSION[version]})"
+            f"; the port reads version 6 and static version 10")
+    if version not in (VERSION, VERSION_COARSE):
         raise ValueError(
-            f"unsupported .mvec version {version}: the port reads version 6 only "
-            f"(versions 7-11 are ROADMAP A3, A4, A6, A9, A11)")
+            f"unsupported .mvec version {version}: the port reads versions 6 and 10")
     if metric_c not in _METRIC_NAME:
         raise ValueError(f".mvec corrupt header: unknown metric code {metric_c}")
+    coarse = None
+    if version == VERSION_COARSE:
+        if tail[0] not in _COARSE_NAME:
+            raise ValueError(f".mvec corrupt header: version 10 requires COARSE_KIND 1 "
+                             f"(sign) or 2 (crumb), got {tail[0]}")
+        coarse = _COARSE_NAME[tail[0]]
+        if has_perm:
+            raise NotImplementedError(".mvec permutation blocks are not ported yet "
+                                      "(ROADMAP A3: mixed-precision permutation)")
     qz._require_4bit(bits)
     rd = _Reader(data, HEADER_LEN)
     std = None
@@ -164,12 +221,16 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
     qnorms = rd.array(np.float32, "norms", count=count)
     blob_len = rd.u64("index_data length")
     blob = rd.take(blob_len, "index_data") if blob_len else None
+    ccodes = None
+    if coarse is not None:
+        ccodes = _read_static_coarse(rd, count, dim_pad, coarse, has_meta=bool(tail[1]))
     rd.expect_eof()
     enc = qz.Encoded(
         packed=torch.from_numpy(packed.reshape(count, bytes_per).copy()).to(device),
         qnorms=torch.from_numpy(qnorms.astype(np.float32)).to(device),
         seed=int(seed), metric=_METRIC_NAME[metric_c], bits=int(bits), dim=int(dim),
-        dim_pad=dim_pad, n4_dims=int(n4_dims), std=std,
+        dim_pad=dim_pad, n4_dims=int(n4_dims), std=std, coarse=coarse,
+        ccodes=None if ccodes is None else torch.from_numpy(ccodes).to(device),
     )
     return MvecFile(enc=enc, ids=np.array(ids, dtype=np.uint64), index_type=int(index_type),
                     index_param=int(index_param), index_data=blob,

@@ -54,6 +54,8 @@ class Encoded:
     dim_pad: int                 # rotated dim d' = next_pow2(d)
     n4_dims: int = 0
     std: Optional[GlobalStd] = None
+    coarse: Optional[str] = None           # binarized coarse-code kind ("sign"/"crumb")
+    ccodes: Optional[torch.Tensor] = None  # [n, code_bytes] uint8 coarse codes (v10)
 
     @property
     def n(self) -> int:

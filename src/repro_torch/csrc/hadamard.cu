@@ -9,7 +9,8 @@
 // fused into the load, so the rotated row is written once and nothing else
 // goes through device memory.
 //
-// Bound on an H100 SXM: each row is read once (4 d bytes) and written once
+// Bound on an NVIDIA H100 80GB HBM3 (700.00 W power limit), from its
+// published rates: each row is read once (4 d bytes) and written once
 // (4 d' bytes) against d' log2(d') adds, so the kernel is memory-bound
 // (at [45000, 1024]: 369 MB, about 110 us at 3.35 TB/s).
 //

@@ -18,7 +18,8 @@
 // row and corpus row, never on b or on which queries share the launch.  A
 // ragged n or b is masked inside the kernel.
 //
-// Bound on an H100 SXM: 2 b n d' flops against (n d'/2 + 4 b d' + 4 b n)
+// Bound on an NVIDIA H100 80GB HBM3 (700.00 W power limit), from its
+// published rates: 2 b n d' flops against (n d'/2 + 4 b d' + 4 b n)
 // bytes.  At b=64, n=45000, d'=1024 that is 5.90 GFLOP (88 us at 67 TFLOP/s
 // of non-tensor f32) against 34.8 MB (10 us at 3.35 TB/s): compute-bound.
 //

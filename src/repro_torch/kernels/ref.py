@@ -43,3 +43,61 @@ def hadamard_ref(x: torch.Tensor) -> torch.Tensor:
     """Direct H @ x on the last axis (unnormalized), the O(d^2) oracle."""
     h = torch.tensor(hadamard_matrix(x.shape[-1]), device=x.device)
     return x @ h.T
+
+
+# ---------------------------------------------------------------------------
+# Binarized coarse proxies and the gathered rescore.
+# ---------------------------------------------------------------------------
+
+#: Set bits of every byte value.
+_POPCOUNT8 = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.uint8)
+
+#: Elements of the [b, rows, bytes] intermediate per chunk of corpus rows.
+_CHUNK_ELEMENTS = 1 << 24
+
+
+def _popcount_rows(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each row of a uint8 tensor, summed over the last axis (int32)."""
+    return _POPCOUNT8.to(x.device)[x.long()].sum(dim=-1, dtype=torch.int32)
+
+
+def _pairwise_popcounts(qcodes: torch.Tensor, codes: torch.Tensor, op) -> torch.Tensor:
+    """[b, n] int32: popcount(op(qcodes[q], codes[r])) summed over bytes, in
+    chunks of corpus rows so the [b, chunk, bytes] intermediate stays bounded."""
+    b, nbytes = qcodes.shape
+    chunk = max(1, _CHUNK_ELEMENTS // max(1, b * nbytes))
+    return torch.cat([_popcount_rows(op(qcodes[:, None, :], codes[None, lo:lo + chunk, :]))
+                      for lo in range(0, codes.shape[0], chunk)], dim=1)
+
+
+def sign_hamming_ref(cbits: torch.Tensor, qbits: torch.Tensor) -> torch.Tensor:
+    """[n, d'/8] uint8, [b, d'/8] uint8 packed sign bits -> [b, n] int32 Hamming distances."""
+    return _pairwise_popcounts(qbits, cbits, torch.bitwise_xor)
+
+
+def crumb_affinity_ref(ccodes: torch.Tensor, qplanes: torch.Tensor) -> torch.Tensor:
+    """[n, d'/4] uint8, [b, d'/4] uint8 crumb planes (hi || lo) -> [b, n] int32
+    affinities: the four weighted AND+popcount terms plus the rank-1 terms
+    ``9 d' - 12 pc(qhi) - 6 pc(qlo) - 12 pc(chi) - 6 pc(clo)``."""
+    dkp = ccodes.shape[1] // 2
+    chi, clo = ccodes[:, :dkp], ccodes[:, dkp:]
+    qhi, qlo = qplanes[:, :dkp], qplanes[:, dkp:]
+    cross = (16 * _pairwise_popcounts(qhi, chi, torch.bitwise_and)
+             + 8 * _pairwise_popcounts(qhi, clo, torch.bitwise_and)
+             + 8 * _pairwise_popcounts(qlo, chi, torch.bitwise_and)
+             + 4 * _pairwise_popcounts(qlo, clo, torch.bitwise_and))
+    row = 12 * _popcount_rows(chi) + 6 * _popcount_rows(clo)          # [n]
+    qc = 12 * _popcount_rows(qhi) + 6 * _popcount_rows(qlo)           # [b]
+    return cross + (9 * 8 * dkp - qc)[:, None] - row[None, :]
+
+
+def gather_nibble_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor,
+                          cand: torch.Tensor) -> torch.Tensor:
+    """[n, d'/2] uint8, [b, d'] f32, [b, m] int rows -> [b, m] raw scores of
+    each query against its candidate rows; a row outside [0, n) scores 0."""
+    n = packed.shape[0]
+    valid = (cand >= 0) & (cand < n)
+    rows = packed[cand.long().clamp(0, n - 1)]                       # [b, m, d'/2]
+    deq = lloydmax.dequantize(unpack_4bit(rows), 4)                  # [b, m, d']
+    scores = torch.bmm(deq, q_rot[:, :, None])[..., 0]
+    return torch.where(valid, scores, torch.zeros((), device=scores.device))

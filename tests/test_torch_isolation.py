@@ -44,12 +44,16 @@ def test_port_imports_and_runs_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import numpy as np\n"
         "import repro_torch\n"
-        "from repro_torch.kernels import cuda_build, hadamard, nibble_dot, ops, ref\n"
+        "from repro_torch.kernels import (binary_dot, cuda_build, gather_dot, hadamard,\n"
+        "                                 nibble_dot, ops, ref)\n"
         "from repro_torch.engine import plan\n"
-        "from repro_torch.core import convert, mvec_format\n"
+        "from repro_torch.core import binary, convert, mvec_format\n"
         "from repro_torch.data import synthetic\n"
         "x = synthetic.embedding_corpus(0, 64, 24)\n"
         "s, i = repro_torch.MonaVec.build(x, device='cpu').search(x[:2], 3)\n"
+        "assert i[0, 0] == 0 and i[1, 0] == 1\n"
+        "idx = repro_torch.MonaVec.build(x, coarse='crumb', device='cpu')\n"
+        "s, i = idx.search(x[:2], 3, rescore_mult=2)\n"
         "assert i[0, 0] == 0 and i[1, 0] == 1\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
@@ -69,6 +73,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch, tmp_path)
     x = np.ones((4, 8), np.float32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MonaVec.build(x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MonaVec.build(x, coarse="sign")
     path = str(tmp_path / "a.mvec")
     MonaVec.build(x, device="cpu").save(path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -82,10 +88,10 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     assert cuda_build.find_nvcc() is None
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.build(["hadamard", "nibble_dot"])
+        cuda_build.build(["hadamard", "nibble_dot", "binary_dot", "gather_dot"])
 
 
-@pytest.mark.parametrize("name", ["hadamard", "nibble_dot"])
+@pytest.mark.parametrize("name", ["hadamard", "nibble_dot", "binary_dot", "gather_dot"])
 def test_kernel_sources_name_what_they_replace(name):
     text = (cuda_build.CSRC / f"{name}.cu").read_text()
     assert "Replaces the Pallas kernel src/repro/kernels/" in text
