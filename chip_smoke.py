@@ -14,7 +14,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
    crumb proxies bit for bit at the same b x n grid, at d' in {8, 16} and
    at n=1,000,000; the gathered 4-bit rescore at b in {1, 7, 64} x m in
    {1, 80, 320} (and at d'=16), within tolerance of its plain version and
-   byte for byte against the full-scan kernel at the same (query, row);
+   byte for byte against the full-scan kernel at the same (query, row); the
+   2-bit scan at the same b x n grid, at d'=16 and at n=1,000,000; the
+   gathered 2-bit rescore at the same b x m grid, byte for byte against the
+   2-bit scan; mixed 4/2-bit full and gathered scans through column views
+   of one code tensor (n4 = 512 of d'=1024, and the small splits 4 of 16
+   and 36 of 64), and each of the four scan kernels on a view byte-equal to
+   its launch on a contiguous copy;
 4. run the main path: ``MonaVec.build`` (cosine, BruteForce, 4-bit) over the
    seeded AG News stand-in, then 10 batches of 64 queries at k=10, reading
    the kernels' launch counters around it; recall@10 against exact f32
@@ -28,16 +34,30 @@ Phases, in order (any failure exits non-zero and prints no result line):
    against exact f32 cosine and the full scan; the port's plain cascade on
    the CPU over the same encoding; every returned score byte-equal to the
    full scan's score of that id; determinism; v10 save -> load -> search;
+4c. run 2-bit and mixed precision at the same size: ``build(bits=2)``,
+   ``build(avg_bits=3.0)`` (the 4-bit block on the leading dims) and a v7
+   index (``encode_mixed`` with the variance permutation of the first 512
+   rotated rows), each with the launch counters around 10 batches of 64;
+   recall@10 against exact f32 cosine and the port's plain path on the CPU;
+   repeat and save -> load -> search byte-identical; code flips of the card
+   encode against the CPU encode; then the crumb cascade (2-bit and v7) or
+   the sign cascade (mixed) at ``rescore_mult=32``: no full-scan launch,
+   every returned score byte-equal to the full scan's, determinism, v10
+   round trip, and for crumb the plain cascade on the CPU over 2 batches;
+4d. the paper's Fig. 3: 4-bit, mixed (leading), mixed (v7) and 2-bit
+   encodes of its anisotropic 4,000 x 1024 corpus, recall@10 printed;
 5. time each kernel, its plain version and a one-call PyTorch yardstick
    with CUDA events (medians of one launch per sample; each kernel also as
    the mean of 10 back-to-back launches per sample), beside the bound the
    card could reach (the proxies also at n=1,000,000, the rescore at m in
-   {80, 320}); the
+   {80, 320}; the 2-bit scan and rescore on the phase-4c 2-bit index, and
+   the mixed scan pair); the
    end-to-end search rate and encode rate; the cascade's rate and batch
-   latency beside the full scan, and at n=1,000,000 (random codes) the
-   batch latency of the full scan and of each cascade; a torch.profiler
-   breakdown of the search, cascade and build windows (device time by
-   kernel, idle share).
+   latency beside the full scan, the same for the 2-bit, mixed and v7 full
+   scans and their cascades, and at n=1,000,000 (random codes) the batch
+   latency of the 4-bit full scan and of each cascade, and of the 2-bit
+   full scan; a torch.profiler breakdown of the search, cascade, build and
+   2-bit and mixed windows (device time by kernel, idle share).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +95,9 @@ SEED = 0           # data seed
 BATCHES = 10       # query batches of 64 on the main path
 RESCORE_MULTS = (8, 32)   # cascade budgets: m = rescore_mult * k survivors
 BIG_BATCHES = 20   # timed query batches of 64 at n=1,000,000
+PERM_SAMPLE = 512  # rotated rows the v7 permutation is taken from (paper_tables.py)
+PRECISIONS = ("bits2", "mixed", "v7")   # phase 4c's indexes
+CPU_CASCADE_BATCHES = 2   # batches of the CPU plain crumb cascade in phase 4c
 
 FAILURES: list = []
 
@@ -161,11 +184,12 @@ def main() -> int:
 
     from repro_torch import MonaVec
     from repro_torch.core import binary, lloydmax, quantize as qz, rhdh, scoring, standardize
+    from repro_torch.core.bruteforce import BruteForceIndex
     from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
-    from repro_torch.kernels import cuda_build, hadamard, ref
+    from repro_torch.kernels import cuda_build, hadamard, ops, ref
     from repro_torch.kernels.binary_dot import crumb_affinity_cuda, sign_hamming_cuda
-    from repro_torch.kernels.gather_dot import gather_nibble_dot_cuda
-    from repro_torch.kernels.nibble_dot import nibble_dot_cuda
+    from repro_torch.kernels.gather_dot import gather_crumb_dot_cuda, gather_nibble_dot_cuda
+    from repro_torch.kernels.nibble_dot import crumb_dot_cuda, nibble_dot_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -317,10 +341,133 @@ def main() -> int:
                 gather_err = worst
     check_gather(7, 80, 16, 300)
     torch.cuda.empty_cache()
+
+    # 2-bit codes and mixed [4-bit | 2-bit] rows.  The tolerance rule is the
+    # 4-bit one, with each dim's |deq| from its own table.
+    crumb_table = torch.tensor(lloydmax.CENTROIDS_2BIT, device=dev)
+
+    def abs_deq(packed: torch.Tensor, bits: int, n4_dims: int = 0) -> torch.Tensor:
+        """|deq| of every dim of packed rows [..., bytes] -> [..., d'] f32."""
+        if bits == 4:
+            return deq_table.abs()[qz.unpack_4bit(packed).long()]
+        if bits == 2:
+            return crumb_table.abs()[qz.unpack_2bit(packed).long()]
+        b4 = n4_dims // 2
+        return torch.cat([abs_deq(packed[..., :b4], 4), abs_deq(packed[..., b4:], 2)], dim=-1)
+
+    def check_crumb_scan(b: int, n: int, d_pad: int) -> tuple:
+        packed = torch.from_numpy(
+            rng.integers(0, 256, size=(n, d_pad // 4), dtype=np.uint8)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d_pad), dtype=np.float32)).to(dev)
+        got = crumb_dot_cuda(packed, q)
+        want = ref.crumb_dot_ref(packed, q)
+        tol = 1e-5 * (q.abs() @ abs_deq(packed, 2).T) + 1e-6
+        err = (got - want).abs()
+        ok = (got.shape == (b, n) and bool(torch.isfinite(got).all())
+              and bool((err <= tol).all()))
+        worst = float(err.max())
+        say(f"crumb scan b={b:>3} n={n:>7} d'={d_pad:>5}: max|err|={worst:.3e} "
+            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}")
+        expect(ok, f"2-bit scan kernel disagrees at b={b} n={n} d'={d_pad}")
+        return worst, packed, q, got
+
+    crumb_err = 0.0
+    for b in (1, 7, 64):
+        for n in (1, 300, N):
+            worst, packed, q, got = check_crumb_scan(b, n, 1024)
+            if (b, n) == (64, N):
+                crumb_err, main_packed, main_q, main_got = worst, packed, q, got
+    check_crumb_scan(7, 300, 16)
+    check_crumb_scan(64, BIG_N, 1024)
+    part = crumb_dot_cuda(main_packed, main_q[:7].contiguous())
+    same = bool(torch.equal(part, main_got[:7]))
+    say(f"2-bit scan rows independent of batch size (7 vs 64): {same}")
+    expect(same, "2-bit scan scores depend on the batch")
+    expect(bool(torch.equal(crumb_dot_cuda(main_packed, main_q), main_got)),
+           "2-bit scan is not repeatable")
+    del main_packed, main_q, main_got, part
+    torch.cuda.empty_cache()
+
+    def check_gather_crumb(b: int, m: int, d_pad: int, n: int) -> float:
+        packed = torch.from_numpy(
+            rng.integers(0, 256, size=(n, d_pad // 4), dtype=np.uint8)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d_pad), dtype=np.float32)).to(dev)
+        cand = torch.from_numpy(rng.integers(0, n, size=(b, m)).astype(np.int32)).to(dev)
+        cand[:, 3::7] = -1
+        valid = cand >= 0
+        got = gather_crumb_dot_cuda(packed, q, cand)
+        want = ref.gather_crumb_dot_ref(packed, q, cand)
+        tol = 1e-5 * torch.einsum("bd,bmd->bm", q.abs(),
+                                  abs_deq(packed[cand.long().clamp(min=0)], 2)) + 1e-6
+        err = (got - want).abs()
+        ok = (got.shape == (b, m) and bool(torch.isfinite(got).all())
+              and bool((err <= tol).all()))
+        full = crumb_dot_cuda(packed, q).gather(1, cand.long().clamp(min=0))
+        same = bool(torch.equal(got[valid], full[valid])) and bool((got[~valid] == 0).all())
+        worst = float(err.max())
+        say(f"gather crumb b={b:>3} m={m:>4} d'={d_pad:>5}: max|err|={worst:.3e} "
+            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}; byte-equal to the "
+            f"2-bit scan at the same rows: {same}")
+        expect(ok, f"gathered 2-bit kernel disagrees at b={b} m={m} d'={d_pad}")
+        expect(same, f"gathered 2-bit kernel is not byte-equal to the 2-bit scan at b={b} "
+                     f"m={m}")
+        return worst
+
+    gather_crumb_err = 0.0
+    for b in (1, 7, 64):
+        for m in (1, 80, 320):
+            worst = check_gather_crumb(b, m, 1024, N)
+            if (b, m) == (64, 320):
+                gather_crumb_err = worst
+    check_gather_crumb(7, 80, 16, 300)
+    torch.cuda.empty_cache()
+
+    def check_mixed(n4: int, d_pad: int, n: int, b: int, m: int) -> None:
+        """A mixed corpus through ops (two kernels on column views and an
+        add), and each kernel on a view against its contiguous launch."""
+        width = qz.bytes_per_vector(d_pad, 3, n4)
+        packed = torch.from_numpy(rng.integers(0, 256, size=(n, width), dtype=np.uint8)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d_pad), dtype=np.float32)).to(dev)
+        cand = torch.from_numpy(rng.integers(0, n, size=(b, m)).astype(np.int32)).to(dev)
+        cand[:, 3::7] = -1
+        valid, rows = cand >= 0, cand.long().clamp(min=0)
+        got = ops.score_raw(packed, q, bits=3, n4_dims=n4)
+        tol = 1e-5 * (q.abs() @ abs_deq(packed, 3, n4).T) + 1e-6
+        ok = bool(((got - ref.mixed_dot_ref(packed, q, n4)).abs() <= tol).all())
+        g = ops.score_gathered_raw(packed, q, cand, bits=3, n4_dims=n4)
+        g_ok = bool(((g - ref.gather_mixed_dot_ref(packed, q, cand, n4)).abs()
+                     <= tol.gather(1, rows))[valid].all())
+        same = bool(torch.equal(g[valid], got.gather(1, rows)[valid]))
+        b4 = n4 // 2
+        blocks = {4: (packed[:, :b4], q[:, :n4]), 2: (packed[:, b4:], q[:, n4:])}
+        views = {}
+        for name, fn, bits, gathered in (
+                ("nibble_dot", nibble_dot_cuda, 4, False),
+                ("crumb_dot", crumb_dot_cuda, 2, False),
+                ("gather_nibble_dot", gather_nibble_dot_cuda, 4, True),
+                ("gather_crumb_dot", gather_crumb_dot_cuda, 2, True)):
+            pv, qv = blocks[bits]
+            extra = (cand,) if gathered else ()
+            views[name] = bool(torch.equal(fn(pv, qv, *extra),
+                                           fn(pv.contiguous(), qv.contiguous(), *extra)))
+        say(f"mixed n4={n4:>3} of d'={d_pad:>5} n={n:>6} b={b:>2} m={m:>3}: full scan within "
+            f"tol {ok}; gathered within tol {g_ok} and byte-equal to the full scan {same}; "
+            f"view == contiguous: {views}")
+        expect(ok and g_ok, f"mixed scan disagrees at n4={n4} d'={d_pad}")
+        expect(same, f"mixed gathered scan is not byte-equal to the full scan at n4={n4}")
+        expect(all(views.values()), f"a kernel on a view differs from its contiguous launch "
+                                    f"at n4={n4} d'={d_pad}: {views}")
+
+    check_mixed(512, 1024, N, 64, 320)
+    check_mixed(4, 16, 300, 7, 80)
+    check_mixed(36, 64, 300, 7, 80)
+    torch.cuda.empty_cache()
     report["kernel_checks"] = {"fwht_main_max_abs_err": fwht_err["main"],
                                "scan_main_max_abs_err": scan_err,
                                "proxy_max_abs_err": proxy_err,
-                               "gather_main_max_abs_err": gather_err}
+                               "gather_main_max_abs_err": gather_err,
+                               "crumb_scan_main_max_abs_err": crumb_err,
+                               "gather_crumb_main_max_abs_err": gather_crumb_err}
 
     # ---- 4. the main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -332,7 +479,8 @@ def main() -> int:
     # Every kernel's launch counter; each path runs between a reset and a read.
     counters = {"fwht": hadamard.fwht_cuda, "nibble_dot": nibble_dot_cuda,
                 "sign_hamming": sign_hamming_cuda, "crumb_affinity": crumb_affinity_cuda,
-                "gather_nibble_dot": gather_nibble_dot_cuda}
+                "gather_nibble_dot": gather_nibble_dot_cuda, "crumb_dot": crumb_dot_cuda,
+                "gather_crumb_dot": gather_crumb_dot_cuda}
 
     def reset_counts() -> None:
         for counter in counters.values():
@@ -502,6 +650,199 @@ def main() -> int:
     del full_scores, cpu_base
     torch.cuda.empty_cache()
 
+    # ---- 4c. 2-bit and mixed precision -----------------------------------------
+    def build_precision(name: str, device) -> MonaVec:
+        """bits=2, mixed on the leading dims, or mixed under the variance
+        permutation of the first PERM_SAMPLE rotated rows (a v7 index, built
+        as benchmarks/paper_tables.py builds Fig. 3's), all at the default seed."""
+        if name == "bits2":
+            return MonaVec.build(corpus, bits=2, device=device)
+        if name == "mixed":
+            return MonaVec.build(corpus, avg_bits=3.0, device=device)
+        x = torch.from_numpy(corpus).to(device)
+        sample = rhdh.rhdh_apply(standardize.prepare(x[:PERM_SAMPLE], "cosine"), enc.seed,
+                                 normalized=False)
+        penc = qz.encode_mixed(x, avg_bits=3.0, perm=qz.variance_permutation(sample))
+        return MonaVec(BruteForceIndex(enc=penc, ids=np.arange(N, dtype=np.uint64)))
+
+    def unpacked_codes(e: qz.Encoded) -> torch.Tensor:
+        """Per-dim codes of any bit mode, in the packed dim order."""
+        if e.bits == 4:
+            return qz.unpack_4bit(e.packed)
+        if e.bits == 2:
+            return qz.unpack_2bit(e.packed)
+        b4 = e.n4_dims // 2
+        return torch.cat([qz.unpack_4bit(e.packed[:, :b4]), qz.unpack_2bit(e.packed[:, b4:])],
+                         dim=1)
+
+    precision_idx, precision_cascade = {}, {}
+    precision_launches = dict.fromkeys(counters, 0)
+    report["precision"] = {}
+    t_phase = time.perf_counter()
+    for name in PRECISIONS:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pidx = build_precision(name, dev)
+        torch.cuda.synchronize()
+        p_build_s = time.perf_counter() - t0
+        p_build_l = read_counts()
+        t0 = time.perf_counter()
+        res = [pidx.search(queries[64 * i: 64 * (i + 1)], k=10) for i in range(BATCHES)]
+        p_search_s = time.perf_counter() - t0
+        got = read_counts()
+        p_search_l = {k: got[k] - p_build_l[k] for k in got}
+        for k in counters:
+            precision_launches[k] += got[k]
+        penc = pidx.backend.enc
+        say(f"{name}: bits={penc.bits} n4_dims={penc.n4_dims} perm={penc.perm is not None} "
+            f"{penc.bytes_per_vector()} B/row; build in {p_build_s:.3f} s, {BATCHES} searches "
+            f"of 64 in {p_search_s:.3f} s; launches: build {p_build_l}, searches {p_search_l}")
+        expect(p_search_l["fwht"] > 0 and p_search_l["crumb_dot"] > 0,
+               f"{name}: the Hadamard or 2-bit scan kernel was not launched")
+        expect((p_search_l["nibble_dot"] > 0) == (name != "bits2"),
+               f"{name}: the 4-bit scan kernel ran {p_search_l['nibble_dot']} times")
+        p_scores = np.concatenate([r[0] for r in res])
+        p_ids = np.concatenate([r[1] for r in res])
+        expect(p_scores.shape == (64 * BATCHES, 10) and np.isfinite(p_scores).all()
+               and bool((p_ids < N).all()), f"{name}: scores or ids out of contract")
+        p_recall = recall_of(p_ids)
+        cpu_p = build_precision(name, "cpu")
+        cpu_s, cpu_i = cpu_p.search(queries, k=10)
+        p_recall_cpu = recall_of(cpu_i)
+        p_same = float(np.mean(cpu_i == p_ids))
+        say(f"{name}: recall@10 {p_recall:.4f} vs exact f32 cosine; CPU plain path recall@10 "
+            f"{p_recall_cpu:.4f}, ids equal in {p_same:.4%} of slots, max|score diff| "
+            f"{float(np.max(np.abs(cpu_s - p_scores))):.3e}")
+        expect(abs(p_recall - p_recall_cpu) <= 0.01, f"{name}: recall differs from the CPU")
+        expect(p_same >= 0.99, f"{name}: ids differ from the CPU plain path in over 1% of slots")
+        s2, i2 = pidx.search(queries[:64], k=10)
+        repeat = s2.tobytes() == res[0][0].tobytes() and i2.tobytes() == res[0][1].tobytes()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as td:
+            path = str(Path(td) / f"{name}.mvec")
+            pidx.save(path)
+            version = Path(path).read_bytes()[4]
+            s3, i3 = MonaVec.load(path).search(queries[:64], k=10)
+        reload = s3.tobytes() == res[0][0].tobytes() and i3.tobytes() == res[0][1].tobytes()
+        say(f"{name}: repeat byte-identical {repeat}; v{version} save -> load -> search "
+            f"byte-identical {reload}")
+        expect(repeat and reload, f"{name}: a repeat or a file round trip gave other bytes")
+        expect(version == (7 if name == "v7" else 6), f"{name}: saved as version {version}")
+        cenc = cpu_p.backend.enc
+        perm_equal = (penc.perm is None and cenc.perm is None) or (
+            penc.perm is not None and cenc.perm is not None
+            and np.array_equal(penc.perm, cenc.perm))
+        flips = {"codes": penc.n * penc.dim_pad, "perm_equal_cpu": perm_equal}
+        if perm_equal:
+            delta = (unpacked_codes(penc).int() - unpacked_codes(cenc).to(dev).int()).abs()
+            flips.update(flips=int((delta > 0).sum()), max_level_delta=int(delta.max()))
+            del delta
+        say(f"{name}: card encode vs CPU encode: {json.dumps(flips)}")
+        expect(perm_equal, f"{name}: the card's permutation differs from the CPU's")
+        expect(flips.get("max_level_delta", 0) <= 1, f"{name}: a code moved by more than one level")
+
+        # One cascade each: crumb on the 2-bit and v7 indexes, sign on mixed.
+        kind = "sign" if name == "mixed" else "crumb"
+        rm = max(RESCORE_MULTS)
+        label = f"{name} cascade {kind} rescore_mult={rm}"
+        cidx = MonaVec(pidx.backend).enable_coarse(kind)
+        precision_idx[name], precision_cascade[name] = pidx, (cidx, kind)
+        p_full = torch.cat([pidx.backend.scores(qt[64 * i: 64 * (i + 1)])
+                            for i in range(BATCHES)])
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cres = [cidx.search(queries[64 * i: 64 * (i + 1)], k=10, rescore_mult=rm)
+                for i in range(BATCHES)]
+        c_run_s = time.perf_counter() - t0
+        got = read_counts()
+        for k in counters:
+            precision_launches[k] += got[k]
+        say(f"{label}: {BATCHES} searches of 64 in {c_run_s:.3f} s; launches {got}")
+        expect(got[proxy_counter[kind]] > 0 and got["gather_crumb_dot"] > 0,
+               f"{label}: the proxy or the gathered 2-bit kernel was not launched")
+        expect((got["gather_nibble_dot"] > 0) == (name != "bits2"),
+               f"{label}: the gathered 4-bit kernel ran {got['gather_nibble_dot']} times")
+        expect(got["nibble_dot"] == 0 and got["crumb_dot"] == 0,
+               f"{label}: a full-scan kernel ran in the cascade")
+        c_scores = np.concatenate([r[0] for r in cres])
+        c_ids = np.concatenate([r[1] for r in cres])
+        expect(c_scores.shape == (64 * BATCHES, 10) and np.isfinite(c_scores).all()
+               and bool((c_ids < N).all()), f"{label}: scores or ids out of contract")
+        scores_equal = (p_full.gather(1, torch.from_numpy(c_ids.astype(np.int64)).to(dev))
+                        .cpu().numpy().tobytes() == c_scores.tobytes())
+        c_recall = recall_of(c_ids)
+        vs_full = float(np.mean([len(set(a) & set(b)) / 10.0 for a, b in zip(c_ids, p_ids)]))
+        s2, i2 = cidx.search(queries[:64], k=10, rescore_mult=rm)
+        repeat = s2.tobytes() == cres[0][0].tobytes() and i2.tobytes() == cres[0][1].tobytes()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as td:
+            path = str(Path(td) / f"{name}-{kind}.mvec")
+            cidx.save(path)
+            s3, i3 = MonaVec.load(path).search(queries[:64], k=10, rescore_mult=rm)
+        reload = s3.tobytes() == cres[0][0].tobytes() and i3.tobytes() == cres[0][1].tobytes()
+        line = (f"{label}: recall@10 {c_recall:.4f} vs exact, {vs_full:.4f} vs the full "
+                f"scan's ids; scores byte-equal to the full scan's: {scores_equal}; repeat "
+                f"byte-identical: {repeat}; v10 save -> load -> search equal: {reload}")
+        entry = {"launches": got, "search_s": c_run_s, "recall_at_10": c_recall,
+                 "recall_vs_full_scan": vs_full, "scores_equal_full_scan": scores_equal}
+        if kind == "crumb":
+            nq = 64 * CPU_CASCADE_BATCHES
+            cpu_c = MonaVec(cpu_p.backend).enable_coarse(kind)
+            cpu_cs, cpu_ci = cpu_c.search(queries[:nq], k=10, rescore_mult=rm)
+            cc_same = float(np.mean(cpu_ci == c_ids[:nq]))
+            # recall_of zips with the exact ids: over the first nq queries here.
+            cc_recall, card_recall = recall_of(cpu_ci), recall_of(c_ids[:nq])
+            line += (f"; over the first {nq} queries the CPU plain cascade's ids are equal in "
+                     f"{cc_same:.4%} of slots, recall@10 {cc_recall:.4f} (card "
+                     f"{card_recall:.4f})")
+            expect(cc_same >= 0.99, f"{label}: ids differ from the CPU plain cascade in over "
+                                    f"1% of slots")
+            expect(abs(cc_recall - card_recall) <= 0.01,
+                   f"{label}: recall differs from the CPU plain cascade")
+            entry.update(ids_equal_cpu=cc_same, recall_at_10_cpu=cc_recall, cpu_queries=nq)
+            del cpu_c
+        say(line)
+        expect(scores_equal, f"{label}: a returned score differs from the full scan's")
+        expect(repeat and reload, f"{label}: a repeat or a v10 round trip gave other bytes")
+        report["precision"][name] = {
+            "bits": penc.bits, "n4_dims": penc.n4_dims, "bytes_per_row": penc.bytes_per_vector(),
+            "build_s": p_build_s, "search_s": p_search_s, "build_launches": p_build_l,
+            "search_launches": p_search_l, "recall_at_10": p_recall,
+            "recall_at_10_cpu": p_recall_cpu, "ids_equal_cpu": p_same, "flips": flips,
+            f"cascade_{kind}_{rm}": entry}
+        del cpu_p, p_full
+        torch.cuda.empty_cache()
+    say(f"phase 4c: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 4d. the paper's Fig. 3 ------------------------------------------------------
+    # benchmarks/paper_tables.py::fig3_mixed_precision: an anisotropic
+    # Gaussian (spectrum exp(-i/80)), 4,000 x 1024, 64 queries, seed 2.
+    f_rng = np.random.RandomState(19)
+    spectrum = np.exp(-np.arange(DIM) / 80).astype(np.float32)
+    f_corpus = (f_rng.randn(4000, DIM) * spectrum).astype(np.float32)
+    f_queries = (f_rng.randn(64, DIM) * spectrum).astype(np.float32)
+    f_exact = scoring.topk(scoring.score_f32(torch.from_numpy(f_queries).to(dev),
+                                             torch.from_numpy(f_corpus).to(dev), "cosine"),
+                           10)[1].cpu().numpy()
+    f_x = torch.from_numpy(f_corpus).to(dev)
+    f_perm = qz.variance_permutation(rhdh.rhdh_apply(
+        standardize.prepare(f_x[:PERM_SAMPLE], "cosine"), 2, normalized=False))
+    fig3 = {"pure4bit": MonaVec.build(f_corpus, bits=4, seed=2),
+            "mixed3bit_leading": MonaVec.build(f_corpus, avg_bits=3.0, seed=2),
+            "mixed3bit_perm_v7": MonaVec(BruteForceIndex(
+                enc=qz.encode_mixed(f_x, seed=2, avg_bits=3.0, perm=f_perm),
+                ids=np.arange(4000, dtype=np.uint64))),
+            "pure2bit": MonaVec.build(f_corpus, bits=2, seed=2)}
+    report["fig3"] = {}
+    for name, fidx in fig3.items():
+        f_ids = fidx.search(f_queries, k=10)[1]
+        f_recall = float(np.mean([len(set(a) & set(b)) / 10.0 for a, b in zip(f_ids, f_exact)]))
+        comp = f_corpus.nbytes / fidx.backend.enc.packed.numel()
+        say(f"fig3/{name}: recall@10 {f_recall:.3f}, compression {comp:.1f}x")
+        expect(0.0 <= f_recall <= 1.0, f"fig3/{name}: recall out of range")
+        report["fig3"][name] = {"recall_at_10": f_recall, "compression": comp}
+    del fig3, f_x
+
     # ---- 5. timing -----------------------------------------------------------
     # The 23 MB corpus stays in the 50 MB L2 between launches, as it does
     # between the searches of a server; the [45000, 1024] rotation does not.
@@ -637,6 +978,54 @@ def main() -> int:
                                      "bound_ms": bnd, "bound_by": by}
     del sign_proxy
 
+    # The 2-bit kernels on the phase-4c 2-bit index; yardsticks as for 4-bit:
+    # `q_rot @ deq2.T` and a bmm of the pre-gathered f32 rows.
+    enc2 = precision_idx["bits2"].backend.enc
+    q_rot2 = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), enc2).contiguous()
+    deq2 = qz.decode(enc2)
+    timing_new["crumb_scan"] = {
+        "kernel": time_ms(lambda: crumb_dot_cuda(enc2.packed, q_rot2)),
+        "b2b": time_ms(lambda: crumb_dot_cuda(enc2.packed, q_rot2), reps=B2B),
+        "plain": time_ms(lambda: ref.crumb_dot_ref(enc2.packed, q_rot2), iters=20),
+        "library": time_ms(lambda: torch.matmul(q_rot2, deq2.T))}
+    timing_new["crumb_scan"]["bound_ms"], timing_new["crumb_scan"]["bound_by"] = bound_ms(
+        nbytes=enc2.n * d_pad / 4 + 4 * b * d_pad + 4 * b * enc2.n,
+        ops=2.0 * b * enc2.n * d_pad)
+    del deq2
+    crumb_proxy2 = binary.coarse_scan_stage(
+        q_rot2, precision_cascade["bits2"][0].backend.enc.ccodes, kind="crumb")
+    for m in (10 * rm for rm in RESCORE_MULTS):
+        cand = binary.survivor_topk_stage(crumb_proxy2, None, m=m)
+        rows_f32 = lloydmax.dequantize(qz.unpack_2bit(enc2.packed[cand.long()]), 2)
+        bnd, by = bound_ms(nbytes=b * m * d_pad / 4 + 4.0 * b * d_pad + 8.0 * b * m + 16,
+                           ops=2.0 * b * m * d_pad)
+        timing_new[f"gather_crumb_{m}"] = {
+            "kernel": time_ms(lambda: gather_crumb_dot_cuda(enc2.packed, q_rot2, cand)),
+            "b2b": time_ms(lambda: gather_crumb_dot_cuda(enc2.packed, q_rot2, cand), reps=B2B),
+            "plain": time_ms(lambda: ref.gather_crumb_dot_ref(enc2.packed, q_rot2, cand),
+                             iters=20),
+            "library": time_ms(lambda: torch.bmm(rows_f32, q_rot2[:, :, None])),
+            "bound_ms": bnd, "bound_by": by}
+        del rows_f32
+    del crumb_proxy2
+    # The mixed scan as the search runs it: two kernels on column views and
+    # one add; its bound is the two blocks' (the codes are 384 B a row).
+    encm = precision_idx["mixed"].backend.enc
+    q_rotm = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), encm).contiguous()
+    deqm = qz.decode(encm)
+    timing_new["mixed_scan"] = {
+        "kernel": time_ms(lambda: ops.score_raw(encm.packed, q_rotm, bits=3,
+                                                n4_dims=encm.n4_dims)),
+        "b2b": time_ms(lambda: ops.score_raw(encm.packed, q_rotm, bits=3,
+                                             n4_dims=encm.n4_dims), reps=B2B),
+        "plain": time_ms(lambda: ref.mixed_dot_ref(encm.packed, q_rotm, encm.n4_dims),
+                         iters=20),
+        "library": time_ms(lambda: torch.matmul(q_rotm, deqm.T))}
+    timing_new["mixed_scan"]["bound_ms"], timing_new["mixed_scan"]["bound_by"] = bound_ms(
+        nbytes=encm.n * encm.bytes_per_vector() + 4 * b * d_pad + 4 * b * encm.n,
+        ops=2.0 * b * encm.n * d_pad)
+    del deqm
+
     timing_old = {
         "scan": {"kernel": t_scan, "b2b": t_scan_b2b, "plain": t_scan_plain,
                  "library": t_scan_lib, "bound_ms": scan_bound, "bound_by": scan_by},
@@ -708,6 +1097,32 @@ def main() -> int:
             idle_estimate(window, lat_c, label)
             report["cascade_timing"][f"{kind}_{rm}"] = {"latency": lat_c, "profile": window}
 
+    # 2-bit and mixed precision end to end: each full scan and its cascade,
+    # each after the 4-bit full scan once more, since host-clocked rates
+    # drift within a process.
+    report["precision_timing"] = {}
+    for name in PRECISIONS:
+        pidx = precision_idx[name]
+        cidx, kind = precision_cascade[name]
+        rm = max(RESCORE_MULTS)
+        lat4 = batch_latencies(lambda qb: idx.search(qb, k=10), queries, 100)
+        say(f"4-bit full scan again, before {name}: {lat4['qps']:.1f} queries/s; batch "
+            f"latency median {lat4['median_ms']:.3f} ms p90 {lat4['p90_ms']:.3f} ms")
+        entry = {"full_4bit_before": lat4}
+        for what, fn in (("full", lambda qb: pidx.search(qb, k=10)),
+                         (f"{kind}_{rm}", lambda qb: cidx.search(qb, k=10, rescore_mult=rm))):
+            label = f"{name} {'full scan' if what == 'full' else 'cascade ' + what}"
+            lat_p = batch_latencies(fn, queries, 100)
+            say(f"{label}: {lat_p['qps']:.1f} queries/s over {lat_p['batches']} batches of 64; "
+                f"batch latency median {lat_p['median_ms']:.3f} ms p90 {lat_p['p90_ms']:.3f} ms "
+                f"({lat_p['qps'] / lat4['qps']:.2f}x the 4-bit full scan's rate just before)")
+            window = profile_window(torch, lambda: [
+                fn(queries[64 * i: 64 * (i + 1)]) for i in range(BATCHES)],
+                f"{label}, {BATCHES} searches of 64", top=8)
+            idle_estimate(window, lat_p, label)
+            entry[what] = {"latency": lat_p, "profile": window}
+        report["precision_timing"][name] = entry
+
     # n=1,000,000 random codes: the full scan against each cascade, timing only.
     big_rng = np.random.default_rng(SEED + 2)
     big = MonaVec.from_arrays(
@@ -722,6 +1137,12 @@ def main() -> int:
             big_lat[f"{kind}_{rm}"] = batch_latencies(
                 lambda qb: big_c.search(qb, k=10, rescore_mult=rm), big_q, BIG_BATCHES)
         del big_c
+    big2 = MonaVec.from_arrays(
+        big_rng.integers(0, 256, size=(BIG_N, DIM // 4), dtype=np.uint8),
+        np.ones(BIG_N, np.float32), seed=SEED, metric="cosine", bits=2, dim=DIM,
+        dim_pad=DIM)
+    big_lat["full_2bit"] = batch_latencies(lambda qb: big2.search(qb, k=10), big_q, BIG_BATCHES)
+    del big2
     for name, lat_b in big_lat.items():
         say(f"n={BIG_N} {name}: batch latency median {lat_b['median_ms']:.3f} ms p90 "
             f"{lat_b['p90_ms']:.3f} ms, {lat_b['qps']:.1f} queries/s over "
@@ -750,15 +1171,23 @@ def main() -> int:
                     proxy_err["crumb"]),
                    ("gather_nibble_dot", "gather_dot", "gather_dot.py:89",
                     f"gather_{10 * max(RESCORE_MULTS)}", gather_err))
+    path_launches = {name: cascade_launches[name] for name, *_ in new_kernels}
+    # The 2-bit kernels run on the phase-4c paths.
+    new_kernels += (("crumb_dot", "nibble_dot", "nibble_dot.py:130", "crumb_scan", crumb_err),
+                    ("gather_crumb_dot", "gather_dot", "gather_dot.py:103",
+                     f"gather_crumb_{10 * max(RESCORE_MULTS)}", gather_crumb_err))
+    path_launches.update(crumb_dot=precision_launches["crumb_dot"],
+                         gather_crumb_dot=precision_launches["gather_crumb_dot"])
     for name, source, replaces, key, err in new_kernels:
         entry = timing_new[key]
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}.cu",
-            "replaces": f"src/repro/kernels/{replaces}", "launches": cascade_launches[name],
+            "replaces": f"src/repro/kernels/{replaces}", "launches": path_launches[name],
             "max_abs_err": err, "ms": entry["kernel"]["median"],
             "plain_ms": entry["plain"]["median"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library"]["median"]})
     report["kernels"] = kernels
+    report["precision_launches"] = precision_launches
     report["failures"] = FAILURES
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

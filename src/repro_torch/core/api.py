@@ -7,11 +7,19 @@
     idx = MonaVec.build(vectors, coarse="sign")           # or "crumb"
     scores, ids = idx.search(queries, k=10, rescore_mult=8)   # the cascade
 
+    idx = MonaVec.build(vectors, bits=2)                  # 2-bit codes
+    idx = MonaVec.build(vectors, avg_bits=3.0)            # mixed 4/2-bit, leading dims
+
+A mixed index with a variance permutation is built from a
+``quantize.encode_mixed(..., perm=quantize.variance_permutation(sample))``
+encoding as ``MonaVec(BruteForceIndex(enc=enc, ids=ids))``.
+
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 The index lives on that device; ids and results come back as numpy arrays
 on the host.  An index with coarse codes saves as a static v10 file, one
-without as v6.  IVF and HNSW are ROADMAP A7 and A8; mutation, metadata and
-autotuning are A4, A6 and A11.
+with a permutation and no coarse codes as v7, any other as v6.  IVF and
+HNSW are ROADMAP A7 and A8; mutation, metadata and autotuning are A4, A6
+and A11.
 """
 
 from __future__ import annotations
@@ -61,11 +69,14 @@ class MonaVec:
         index: str = "bruteforce",
         seed: int = 0x6D6F6E61,
         bits: int = 4,
+        avg_bits: Optional[float] = None,
         std: Optional[GlobalStd] = None,
         ids: Optional[np.ndarray] = None,
         coarse: Optional[str] = None,
         device: torch.device | str = "cuda",
     ) -> "MonaVec":
+        """Encode and index ``vectors`` at ``bits`` (2 or 4), or mixed 4/2-bit
+        when ``avg_bits`` is given and is not 4."""
         if coarse is not None and index != "bruteforce":
             raise ValueError("coarse= (the binarized cascade) requires the bruteforce "
                              f"index, got index={index!r}")
@@ -73,7 +84,7 @@ class MonaVec:
         dev = resolve_device(device)
         x = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
         idx = MonaVec(BruteForceIndex.build(x, metric=metric, seed=seed, bits=bits,
-                                            std=std, ids=ids))
+                                            std=std, ids=ids, avg_bits=avg_bits))
         if coarse is not None:
             idx.enable_coarse(coarse)
         return idx
@@ -89,14 +100,17 @@ class MonaVec:
         dim: int,
         dim_pad: int,
         ids: Optional[np.ndarray] = None,
+        n4_dims: int = 0,
+        perm: Optional[np.ndarray] = None,
         std_mean: Optional[float] = None,
         std_inv_std: Optional[float] = None,
         device: torch.device | str = "cuda",
     ) -> "MonaVec":
         """An index over an already-encoded corpus (see ``core.convert``)."""
         enc = encoded_from_arrays(packed, qnorms, seed=seed, metric=metric, bits=bits,
-                                  dim=dim, dim_pad=dim_pad, std_mean=std_mean,
-                                  std_inv_std=std_inv_std, device=device)
+                                  dim=dim, dim_pad=dim_pad, n4_dims=n4_dims, perm=perm,
+                                  std_mean=std_mean, std_inv_std=std_inv_std,
+                                  device=device)
         if ids is None:
             ids = np.arange(enc.n, dtype=np.uint64)
         return MonaVec(BruteForceIndex(enc=enc, ids=np.asarray(ids, dtype=np.uint64)))
@@ -134,7 +148,7 @@ class MonaVec:
                rescore_mult: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k: rotate -> scan -> adjust -> allowlist mask -> stable top-k,
         or with ``rescore_mult=r`` the cascade: coarse proxy -> r*k survivors
-        -> gathered 4-bit rescore -> stable top-k.  Always exactly ``k``
+        -> gathered rescore -> stable top-k.  Always exactly ``k``
         columns; inadmissible slots carry SENTINEL_ID/NEG."""
         return self.backend.search(queries, k, allow=allow, rescore_mult=rescore_mult)
 

@@ -1,21 +1,25 @@
 """Binarized coarse codes and the cascade's three stages (counterpart of
 ``repro/core/binary.py``; DESIGN.md §11).
 
-The coarse code is a pure function of the packed 4-bit codes.  The
-Lloyd-Max boundary tables put 0.0 at their middle, so a 4-bit code is >= 8
-exactly where the rotated coordinate is >= 0:
+The coarse code is a pure function of the packed codes.  The Lloyd-Max
+boundary tables put 0.0 at their middle, so a 4-bit code is >= 8 (a 2-bit
+code >= 2) exactly where the rotated coordinate is >= 0.  Per dim, the
+**crumb** is the top two bits of the code: ``code >> 2`` for a 4-bit code,
+the code itself for a 2-bit one, and for a mixed row the crumbs of its
+4-bit dims then those of its 2-bit dims:
 
-* the **sign** code is that predicate, 8 dims per byte in the
+* the **sign** code is the crumb's hi bit, 8 dims per byte in the
   ``np.packbits(bitorder="little")`` layout: d'/8 bytes per row;
-* the **crumb** code is the top two bits of each code (``code >> 2``),
-  stored as two such bit planes, the hi plane then the lo plane: d'/4
-  bytes per row.
+* the **crumb** code is stored as two such bit planes, the hi plane then
+  the lo plane: d'/4 bytes per row.
 
-Byte i of a packed row holds code 2i in bits 0-3 and code 2i+1 in bits 4-7,
-so the sign (and crumb hi) bit of dim 2i is bit 3 of byte i and that of dim
-2i+1 is bit 7; the crumb lo bits are bits 2 and 6.  ``derive_codes`` packs
-those bits straight from the packed bytes, on the codes' device, without
-unpacking the codes.
+For a 4-bit corpus byte i of a packed row holds code 2i in bits 0-3 and code
+2i+1 in bits 4-7, so the sign (and crumb hi) bit of dim 2i is bit 3 of byte
+i and that of dim 2i+1 is bit 7; the crumb lo bits are bits 2 and 6, and
+``derive_codes`` packs those bits straight from the packed bytes.  For 2-bit
+and mixed corpora it unpacks the per-dim crumbs first and packs their bit
+planes after: a mixed split that is not a multiple of 8 dims puts dims of
+both blocks into one coarse byte.  Either way it runs on the codes' device.
 
 Query side, the sign bit is ``q_rot >= 0`` (the corpus predicate) and the
 crumb planes come from the 2-bit Lloyd-Max code of the rotated query, both
@@ -77,20 +81,38 @@ def _pack_code_bits(packed: torch.Tensor, shift_even: int, shift_odd: int) -> to
     return out
 
 
-def derive_codes(packed: torch.Tensor, *, bits: int, dim_pad: int, kind: str) -> torch.Tensor:
+def _crumbs(packed: torch.Tensor, bits: int, n4_dims: int) -> torch.Tensor:
+    """Per-dim crumbs [n, d'] in [0, 4) of a 2-bit or mixed corpus."""
+    if bits == 2:
+        return qz.unpack_2bit(packed)
+    if bits == 3:
+        b4 = n4_dims // 2
+        return torch.cat([qz.unpack_4bit(packed[:, :b4]) >> 2,
+                          qz.unpack_2bit(packed[:, b4:])], dim=1)
+    raise ValueError(f"unsupported bits={bits}: expected one of {qz.BIT_WIDTHS}")
+
+
+def derive_codes(packed: torch.Tensor, *, bits: int, dim_pad: int, kind: str,
+                 n4_dims: int = 0) -> torch.Tensor:
     """The packed coarse code [n, code_bytes(dim_pad, kind)] uint8 of a
-    4-bit corpus, on the codes' device."""
+    corpus of any bit mode, on the codes' device."""
     nbytes = code_bytes(dim_pad, kind)                # validates kind and d'
-    qz._require_4bit(bits)
-    sign = _pack_code_bits(packed, 3, 7)              # code >= 8: the crumb's hi bit
-    out = sign if kind == SIGN else torch.cat([sign, _pack_code_bits(packed, 2, 6)], dim=1)
+    if bits == 4:
+        sign = _pack_code_bits(packed, 3, 7)          # code >= 8: the crumb's hi bit
+        lo = None if kind == SIGN else _pack_code_bits(packed, 2, 6)
+    else:
+        crumbs = _crumbs(packed, bits, n4_dims)
+        sign = _pack_bits(crumbs >> 1)
+        lo = None if kind == SIGN else _pack_bits(crumbs & 1)
+    out = sign if kind == SIGN else torch.cat([sign, lo], dim=1)
     assert out.shape == (packed.shape[0], nbytes)
     return out
 
 
 def attach_coarse(enc: qz.Encoded, kind: str) -> qz.Encoded:
     """A copy of ``enc`` carrying the derived coarse code (idempotent)."""
-    ccodes = derive_codes(enc.packed, bits=enc.bits, dim_pad=enc.dim_pad, kind=kind)
+    ccodes = derive_codes(enc.packed, bits=enc.bits, dim_pad=enc.dim_pad, kind=kind,
+                          n4_dims=enc.n4_dims)
     return dataclasses.replace(enc, coarse=kind, ccodes=ccodes)
 
 
@@ -163,7 +185,10 @@ def survivor_topk_stage(proxy: torch.Tensor, live: Optional[torch.Tensor], *,
 
 
 def gathered_rescore_stage(q_rot: torch.Tensor, packed: torch.Tensor, qnorms: torch.Tensor,
-                           cand: torch.Tensor, *, bits: int, metric: str) -> torch.Tensor:
-    """Metric-adjusted 4-bit rescores [b, m]; dead survivors come back NEG."""
-    return ops.score_gathered(packed, q_rot, cand, bits=bits, qnorms=qnorms, metric=metric)
+                           cand: torch.Tensor, *, bits: int, metric: str,
+                           n4_dims: int = 0) -> torch.Tensor:
+    """Metric-adjusted rescores [b, m] at the corpus's own precision; dead
+    survivors come back NEG."""
+    return ops.score_gathered(packed, q_rot, cand, bits=bits, n4_dims=n4_dims,
+                              qnorms=qnorms, metric=metric)
 

@@ -2,7 +2,8 @@
 
 Zero build time beyond the encode, deterministic, memory-compact: the
 paper's default index.  The scan is ``ops.score_raw``, which on the card is
-the 4-bit CUDA kernel; ``search`` routes through ``engine.search_backend``,
+the 4-bit or 2-bit CUDA kernel, or both for a mixed corpus; ``search``
+routes through ``engine.search_backend``,
 which runs the binarized cascade instead when ``rescore_mult`` asks for it
 and the index carries coarse codes.
 """
@@ -20,9 +21,10 @@ from . import quantize as qz
 from .allowlist import Allowlist
 
 
-def scan_stage(q_rot: torch.Tensor, packed: torch.Tensor, *, bits: int) -> torch.Tensor:
+def scan_stage(q_rot: torch.Tensor, packed: torch.Tensor, *, bits: int,
+               n4_dims: int = 0) -> torch.Tensor:
     """Raw full-corpus scan: [b, d'] rotated queries x [n, bytes] codes -> [b, n]."""
-    return ops.score_raw(packed, q_rot, bits=bits)
+    return ops.score_raw(packed, q_rot, bits=bits, n4_dims=n4_dims)
 
 
 @dataclasses.dataclass
@@ -39,8 +41,15 @@ class BruteForceIndex:
         seed: int = 0x6D6F6E61,
         bits: int = 4,
         std=None,
+        avg_bits: Optional[float] = None,
     ) -> "BruteForceIndex":
-        enc = qz.encode(vectors, metric=metric, seed=seed, bits=bits, std=std)
+        """Encode ``vectors``: at ``bits`` (2 or 4), or mixed 4/2-bit (leading
+        dims) when ``avg_bits`` is given and is not 4."""
+        if avg_bits is not None and avg_bits != 4:
+            enc = qz.encode_mixed(vectors, metric=metric, seed=seed, avg_bits=avg_bits,
+                                  std=std)
+        else:
+            enc = qz.encode(vectors, metric=metric, seed=seed, bits=bits, std=std)
         if ids is None:
             ids = np.arange(vectors.shape[0], dtype=np.uint64)
         return BruteForceIndex(enc=enc, ids=np.asarray(ids, dtype=np.uint64))

@@ -1,7 +1,8 @@
 """Build the port's ``Encoded`` from plain arrays.
 
-The fields of an encoded corpus (packed codes, norms, seed and shape
-metadata) are the "weights" of this system.  Taking them as numpy arrays
+The fields of an encoded corpus (packed codes, norms, seed, shape
+metadata and, for a mixed corpus, its 4/2 split and permutation) are the
+"weights" of this system.  Taking them as numpy arrays
 lets one encoded corpus, for example the reference's ``Encoded``, feed both
 packages without going through a file.
 """
@@ -28,19 +29,32 @@ def encoded_from_arrays(
     bits: int,
     dim: int,
     dim_pad: int,
+    n4_dims: int = 0,
+    perm: Optional[np.ndarray] = None,
     std_mean: Optional[float] = None,
     std_inv_std: Optional[float] = None,
     device: torch.device | str = "cuda",
 ) -> qz.Encoded:
-    qz._require_4bit(bits)
+    """An Encoded on ``device``; ``bits`` 2, 3 (mixed, with ``n4_dims``
+    4-bit dims and optionally the variance permutation ``perm``) or 4."""
+    width = qz.bytes_per_vector(dim_pad, bits, n4_dims)   # validates bits
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
     if dim_pad != next_pow2(dim):
         raise ValueError(f"dim_pad={dim_pad} is not next_pow2(dim={dim})")
+    if bits == 3:
+        if not 0 <= n4_dims <= dim_pad or n4_dims % 4:
+            raise ValueError(f"n4_dims={n4_dims} must be a multiple of 4 in [0, {dim_pad}]")
+    elif n4_dims or perm is not None:
+        raise ValueError(f"n4_dims and perm belong to mixed (bits=3) corpora, got bits={bits}")
+    if perm is not None:
+        perm = np.asarray(perm, dtype=np.int32)
+        if perm.shape != (dim_pad,) or not np.array_equal(np.sort(perm), np.arange(dim_pad)):
+            raise ValueError(f"perm must be a permutation of range({dim_pad})")
     packed = np.asarray(packed, dtype=np.uint8)
     qnorms = np.asarray(qnorms, dtype=np.float32)
-    if packed.ndim != 2 or packed.shape[1] != dim_pad // 2:
-        raise ValueError(f"packed must be [n, {dim_pad // 2}], got {packed.shape}")
+    if packed.ndim != 2 or packed.shape[1] != width:
+        raise ValueError(f"packed must be [n, {width}], got {packed.shape}")
     if qnorms.shape != (packed.shape[0],):
         raise ValueError(f"qnorms must be [{packed.shape[0]}], got {qnorms.shape}")
     if (std_mean is None) != (std_inv_std is None):
@@ -51,5 +65,5 @@ def encoded_from_arrays(
         packed=torch.tensor(packed, device=dev),
         qnorms=torch.tensor(qnorms, device=dev),
         seed=int(seed), metric=metric, bits=bits, dim=int(dim), dim_pad=int(dim_pad),
-        std=std,
+        n4_dims=int(n4_dims), std=std, perm=perm,
     )

@@ -6,8 +6,10 @@ when k > n -> stable top-k -> -1 -> SENTINEL_ID.
 
 Binarized cascade (``rescore_mult=r``, DESIGN.md §11): rotate -> coarse
 integer proxy over every row -> top m = r*k survivors over the live mask
-(the allowlist) -> gathered 4-bit rescore of the survivors -> stable top-k
--> positions -> SENTINEL_ID.  Dead survivors carry NEG.  Since m = r*k >= k,
+(the allowlist) -> gathered rescore of the survivors at the corpus's own
+precision -> stable top-k -> positions -> SENTINEL_ID.  The rotation applies
+the corpus's variance permutation (v7), so the coarse stage and both scans
+read the permuted query.  Dead survivors carry NEG.  Since m = r*k >= k,
 a static index never has fewer survivor slots than k.
 
 PyTorch runs eagerly, so each step is one call on the index's device and
@@ -60,7 +62,8 @@ def resolve_knobs(backend: bf_mod.BruteForceIndex, k: int, **kwargs) -> dict:
 
 def _full_scan(enc: qz.Encoded, q_rot: torch.Tensor, k: int,
                allow: Optional[Allowlist]) -> Tuple[torch.Tensor, torch.Tensor]:
-    scores = adjust_scores(bf_mod.scan_stage(q_rot, enc.packed, bits=enc.bits),
+    scores = adjust_scores(bf_mod.scan_stage(q_rot, enc.packed, bits=enc.bits,
+                                             n4_dims=enc.n4_dims),
                            enc.qnorms, enc.metric)
     if allow is not None:
         scores = allow.apply(scores)
@@ -75,7 +78,8 @@ def _cascade(enc: qz.Encoded, q_rot: torch.Tensor, k: int, m: int,
     proxy = binary.coarse_scan_stage(q_rot, enc.ccodes, kind=enc.coarse)
     cand = binary.survivor_topk_stage(proxy, live, m=m)
     scores = binary.gathered_rescore_stage(q_rot, enc.packed, enc.qnorms, cand,
-                                           bits=enc.bits, metric=enc.metric)
+                                           bits=enc.bits, metric=enc.metric,
+                                           n4_dims=enc.n4_dims)
     vals, sel = topk(scores, k)
     return vals, torch.gather(cand, 1, sel).long()
 

@@ -1,10 +1,15 @@
-"""The 4-bit full scan: CUDA kernel wrapper.
+"""The 4-bit and 2-bit full scans: CUDA kernel wrappers.
 
-Counterpart of ``repro/kernels/nibble_dot.py`` (``nibble_dot_raw``): raw f32
-scores ``[b, n] = <q_rot, deq(packed)>`` of rotated queries against a packed
-4-bit corpus.  The kernel is ``csrc/nibble_dot.cu``; its plain version is
-``kernels.ref.nibble_dot_ref``, and ``kernels.ops.nibble_score_raw`` picks
-between them by device.
+Counterpart of ``repro/kernels/nibble_dot.py`` (``nibble_dot_raw`` and
+``crumb_dot_raw``): raw f32 scores ``[b, n] = <q_rot, deq(packed)>`` of
+rotated queries against packed 4-bit or 2-bit codes.  Both kernels are
+``csrc/nibble_dot.cu``; their plain versions are ``kernels.ref.nibble_dot_ref``
+and ``kernels.ref.crumb_dot_ref``, and ``kernels.ops`` picks between them by
+device.
+
+Codes and queries may be row-strided views (rows whose elements are
+contiguous, any row stride), so the two blocks of a mixed corpus are
+scanned as column slices of one tensor without a copy.
 """
 
 from __future__ import annotations
@@ -17,44 +22,71 @@ import torch
 from ..core import lloydmax
 from . import cuda_build
 
+#: Codes per byte of each width the kernels take.
+CODES_PER_BYTE = {4: 2, 2: 4}
 
-@functools.lru_cache(maxsize=8)
-def _lut(device: torch.device) -> torch.Tensor:
-    return torch.tensor(lloydmax.CENTROIDS_4BIT, device=device)
+
+@functools.lru_cache(maxsize=16)
+def _lut(device: torch.device, bits: int) -> torch.Tensor:
+    return torch.tensor(lloydmax.centroids(bits), device=device)
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("nibble_dot")
-    lib.nibble_dot.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.nibble_dot.restype = ctypes.c_int
+    for fn in (lib.nibble_dot, lib.crumb_dot):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def nibble_dot_cuda(packed: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
-    """[n, d'/2] uint8 codes, [b, d'] f32 rotated queries -> [b, n] f32 raw scores."""
+def row_stride(name: str, t: torch.Tensor) -> int:
+    """The row stride of a 2-D tensor whose rows are contiguous, the layout
+    the kernels index; raises for any other layout."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"{name} takes 2-D tensors with contiguous rows, got shape "
+                         f"{tuple(t.shape)} and strides {t.stride()}")
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]   # one row: any stride will do
+
+
+def _scan(wrapper, fn_name: str, bits: int, packed: torch.Tensor,
+          q_rot: torch.Tensor) -> torch.Tensor:
+    name = wrapper.__name__
     if not (packed.is_cuda and q_rot.device == packed.device):
-        raise ValueError(f"nibble_dot_cuda needs both tensors on one CUDA device, got "
+        raise ValueError(f"{name} needs both tensors on one CUDA device, got "
                          f"{packed.device} and {q_rot.device}")
     if packed.dtype != torch.uint8 or q_rot.dtype != torch.float32:
-        raise ValueError(f"nibble_dot_cuda takes uint8 codes and f32 queries, got "
+        raise ValueError(f"{name} takes uint8 codes and f32 queries, got "
                          f"{packed.dtype} and {q_rot.dtype}")
-    if packed.dim() != 2 or q_rot.dim() != 2 or q_rot.shape[1] != 2 * packed.shape[1]:
+    per = CODES_PER_BYTE[bits]
+    if (packed.dim() != 2 or q_rot.dim() != 2 or packed.shape[1] == 0
+            or q_rot.shape[1] != per * packed.shape[1]):
         raise ValueError(f"shapes {tuple(packed.shape)} and {tuple(q_rot.shape)} are not "
-                         f"[n, d'/2] and [b, d']")
-    if not (packed.is_contiguous() and q_rot.is_contiguous()):
-        raise ValueError("nibble_dot_cuda takes contiguous tensors")
-    if packed.data_ptr() % 16 or q_rot.data_ptr() % 16:
-        raise ValueError("nibble_dot_cuda needs 16-byte aligned tensors")
+                         f"[n, d'/{per}] and [b, d'] with d' > 0")
+    code_stride, q_stride = row_stride(name, packed), row_stride(name, q_rot)
     (n, dk), b = packed.shape, q_rot.shape[0]
     out = torch.empty((b, n), dtype=torch.float32, device=packed.device)
     lib = _lib()
     stream = torch.cuda.current_stream(packed.device).cuda_stream
-    rc = lib.nibble_dot(packed.data_ptr(), q_rot.data_ptr(), _lut(packed.device).data_ptr(),
-                        out.data_ptr(), b, n, 2 * dk, packed.device.index, stream)
+    rc = getattr(lib, fn_name)(packed.data_ptr(), code_stride, q_rot.data_ptr(),
+                               q_stride, _lut(packed.device, bits).data_ptr(),
+                               out.data_ptr(), b, n, per * dk, packed.device.index, stream)
     cuda_build.check(lib, "nibble_dot", rc)
     if b and n:
-        nibble_dot_cuda.launches += 1
+        wrapper.launches += 1
     return out
 
 
+def nibble_dot_cuda(packed: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
+    """[n, d'/2] uint8 codes, [b, d'] f32 rotated queries -> [b, n] f32 raw scores."""
+    return _scan(nibble_dot_cuda, "nibble_dot", 4, packed, q_rot)
+
+
+def crumb_dot_cuda(packed: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
+    """[n, d'/4] uint8 2-bit codes, [b, d'] f32 rotated queries -> [b, n] f32 raw scores."""
+    return _scan(crumb_dot_cuda, "crumb_dot", 2, packed, q_rot)
+
+
 nibble_dot_cuda.launches = 0
+crumb_dot_cuda.launches = 0

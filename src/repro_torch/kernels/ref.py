@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core import lloydmax
-from ..core.quantize import unpack_4bit
+from ..core.quantize import unpack_2bit, unpack_4bit
 from ..core.rhdh import hadamard_matrix
 
 _ROW_CHUNK = 8
@@ -37,6 +37,19 @@ def nibble_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
     """[n, d/2] packed uint8, [b, d] rotated f32 queries -> [b, n] raw scores."""
     deq = lloydmax.dequantize(unpack_4bit(packed), 4)      # [n, d] f32
     return _chunked_dot(q_rot, deq.T)
+
+
+def crumb_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
+    """[n, d/4] packed uint8 (2-bit codes), [b, d] rotated f32 queries -> [b, n]."""
+    deq = lloydmax.dequantize(unpack_2bit(packed), 2)
+    return _chunked_dot(q_rot, deq.T)
+
+
+def mixed_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor, n4_dims: int) -> torch.Tensor:
+    """Mixed [4-bit block | 2-bit block] rows: the sum of the two blocks' scores."""
+    b4 = n4_dims // 2
+    return (nibble_dot_ref(packed[:, :b4], q_rot[:, :n4_dims])
+            + crumb_dot_ref(packed[:, b4:], q_rot[:, n4_dims:]))
 
 
 def hadamard_ref(x: torch.Tensor) -> torch.Tensor:
@@ -91,13 +104,33 @@ def crumb_affinity_ref(ccodes: torch.Tensor, qplanes: torch.Tensor) -> torch.Ten
     return cross + (9 * 8 * dkp - qc)[:, None] - row[None, :]
 
 
+def _gather_dot(packed: torch.Tensor, q_rot: torch.Tensor, cand: torch.Tensor,
+                bits: int) -> torch.Tensor:
+    n = packed.shape[0]
+    valid = (cand >= 0) & (cand < n)
+    rows = packed[cand.long().clamp(0, n - 1)]                       # [b, m, bytes]
+    codes = unpack_4bit(rows) if bits == 4 else unpack_2bit(rows)
+    deq = lloydmax.dequantize(codes, bits)                           # [b, m, d']
+    scores = torch.bmm(deq, q_rot[:, :, None])[..., 0]
+    return torch.where(valid, scores, torch.zeros((), device=scores.device))
+
+
 def gather_nibble_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor,
                           cand: torch.Tensor) -> torch.Tensor:
     """[n, d'/2] uint8, [b, d'] f32, [b, m] int rows -> [b, m] raw scores of
     each query against its candidate rows; a row outside [0, n) scores 0."""
-    n = packed.shape[0]
-    valid = (cand >= 0) & (cand < n)
-    rows = packed[cand.long().clamp(0, n - 1)]                       # [b, m, d'/2]
-    deq = lloydmax.dequantize(unpack_4bit(rows), 4)                  # [b, m, d']
-    scores = torch.bmm(deq, q_rot[:, :, None])[..., 0]
-    return torch.where(valid, scores, torch.zeros((), device=scores.device))
+    return _gather_dot(packed, q_rot, cand, 4)
+
+
+def gather_crumb_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor,
+                         cand: torch.Tensor) -> torch.Tensor:
+    """The 2-bit version of ``gather_nibble_dot_ref``: [n, d'/4] uint8 rows."""
+    return _gather_dot(packed, q_rot, cand, 2)
+
+
+def gather_mixed_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor, cand: torch.Tensor,
+                         n4_dims: int) -> torch.Tensor:
+    """Mixed rows: the sum of the two blocks' gathered scores."""
+    b4 = n4_dims // 2
+    return (gather_nibble_dot_ref(packed[:, :b4], q_rot[:, :n4_dims], cand)
+            + gather_crumb_dot_ref(packed[:, b4:], q_rot[:, n4_dims:], cand))

@@ -207,15 +207,15 @@ def test_reference_file_loads_in_port(metric, tmp_path):
     assert _sha(again) == _sha(path)
 
 
-@pytest.mark.parametrize("name,version", [("v7_perm_bruteforce.mvec", 7),
-                                          ("v8_segmented_ivf.mvec", 8),
+@pytest.mark.parametrize("name,version", [("v8_segmented_ivf.mvec", 8),
                                           ("v9_meta_bruteforce.mvec", 9),
                                           ("v10_coarse_bruteforce.mvec", 10),
                                           ("v11_tuned_ivf.mvec", 11)])
 def test_load_rejects_other_versions(name, version):
     """Each fixture holds something the port cannot represent yet, and the
-    error names its ROADMAP item (the v10 fixture has extra segments)."""
-    item = {7: "A3", 8: "A4", 9: "A6", 10: "A4", 11: "A11"}[version]
+    error names its ROADMAP item (the v10 fixture has extra segments).  The
+    v7 fixture loads: tests/test_torch_mixed.py round-trips it."""
+    item = {8: "A4", 9: "A6", 10: "A4", 11: "A11"}[version]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         MonaVec.load(os.path.join(GOLDEN, name), device="cpu")
 

@@ -123,9 +123,10 @@ def test_code_bytes_and_derive_reject_what_the_reference_rejects():
         binary.code_bytes(64, "trit")
     with pytest.raises(ValueError, match="dim_pad % 8 == 0"):
         binary.code_bytes(4, "sign")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        binary.derive_codes(torch.zeros(3, 16, dtype=torch.uint8), bits=2, dim_pad=64,
-                            kind="sign")
+    for derive in (binary.derive_codes, rbinary.derive_codes):
+        with pytest.raises(ValueError, match="unsupported bits=5"):
+            derive(torch.zeros(3, 16, dtype=torch.uint8), bits=5, n4_dims=0, dim_pad=64,
+                   kind="sign")
 
 
 def test_constants_equal_reference():
@@ -244,10 +245,10 @@ def test_gathered_plain_version_is_the_full_scan_at_the_same_rows():
     assert (got.numpy()[~inside] == 0).all()
 
 
-def test_gather_wants_4bit_codes():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3, kernel B5"):
+def test_gather_rejects_unsupported_bits():
+    with pytest.raises(ValueError, match="unsupported bits=5"):
         tops.score_gathered_raw(torch.zeros(4, 4, dtype=torch.uint8), torch.zeros(1, 16),
-                                torch.zeros(1, 2, dtype=torch.int32), bits=2)
+                                torch.zeros(1, 2, dtype=torch.int32), bits=5)
 
 
 # ---------------------------------------------------------------------------
@@ -504,8 +505,8 @@ def test_v10_the_port_cannot_represent_raises(what, tmp_path):
         data[46] = 3
         err, match = ValueError, "COARSE_KIND"
     else:
-        data[45] = 1
-        err, match = NotImplementedError, "ROADMAP A3"
+        data[45] = 1              # HAS_PERM with no PERM block: a corrupt file
+        err, match = ValueError, "'perm'"
     path2 = tmp_path / "bad.mvec"
     path2.write_bytes(bytes(data))
     with pytest.raises(err, match=match):

@@ -133,8 +133,8 @@ def test_nibble_dot_cuda_refuses_before_building(bad):
 
 
 def test_other_bit_widths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tops.score_raw(torch.zeros(2, 4, dtype=torch.uint8), torch.zeros(1, 16), bits=2)
+    with pytest.raises(ValueError, match="unsupported bits=5"):
+        tops.score_raw(torch.zeros(2, 4, dtype=torch.uint8), torch.zeros(1, 16), bits=5)
 
 
 def test_stable_topk_zero_row_takes_lowest_indices():

@@ -114,7 +114,8 @@ def test_encode_query_matches_reference(metric):
     assert np.all(np.abs(got - want) <= 1e-5 * scale + 1e-6)
 
 
-@pytest.mark.parametrize("bits", [2, 3])
+@pytest.mark.parametrize("bits", [3, 5])
 def test_other_bit_widths_raise(bits):
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    """encode takes 2 or 4 bits, as the reference's does (3 is encode_mixed)."""
+    with pytest.raises(ValueError, match="use encode_mixed"):
         tqz.encode(torch.zeros(4, 8), bits=bits)

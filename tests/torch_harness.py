@@ -2,7 +2,8 @@
 
 Both packages get the same numpy inputs; the port runs on the CPU, where
 each kernel wrapper takes its plain version.  Tolerances follow the port's
-stated rule for f32 dot products: |diff| <= 1e-5 * sum_i |q_i * deq_i| + 1e-6.
+stated rule for f32 dot products: |diff| <= 1e-5 * sum_i |q_i * deq_i| + 1e-6,
+with deq the 4-bit or 2-bit centroid of each dim's code.
 """
 
 from __future__ import annotations
@@ -46,27 +47,53 @@ def reference_stream() -> bool:
     return bool(jax.config.jax_threefry_partitionable)
 
 
-def dot_tolerance(q_rot: np.ndarray, packed: np.ndarray) -> np.ndarray:
-    """[b, n] bound 1e-5 * sum_i |q_i * deq_i| + 1e-6 on a raw 4-bit score."""
-    absdeq = np.abs(tlm.CENTROIDS_4BIT)[tqz.unpack_4bit(torch.tensor(packed)).numpy()]
+def unpack_codes(packed: np.ndarray, bits: int = 4, n4_dims: int = 0):
+    """Per-dim codes [..., d'] (int64) of packed rows of any bit mode, and
+    each dim's width [d'] (4 or 2)."""
+    t = torch.tensor(np.ascontiguousarray(packed))
+    if bits == 4:
+        codes = tqz.unpack_4bit(t)
+    elif bits == 2:
+        codes = tqz.unpack_2bit(t)
+    else:
+        b4 = n4_dims // 2
+        codes = torch.cat([tqz.unpack_4bit(t[..., :b4]), tqz.unpack_2bit(t[..., b4:])], dim=-1)
+    d = codes.shape[-1]
+    widths = np.full(d, 4 if bits == 4 else 2)
+    if bits == 3:
+        widths[:n4_dims] = 4
+    return codes.numpy().astype(np.int64), widths
+
+
+def dot_tolerance(q_rot: np.ndarray, packed: np.ndarray, bits: int = 4,
+                  n4_dims: int = 0) -> np.ndarray:
+    """[b, n] bound 1e-5 * sum_i |q_i * deq_i| + 1e-6 on a raw score of
+    packed rows of any bit mode."""
+    codes, widths = unpack_codes(packed, bits, n4_dims)
+    absdeq = np.where(widths == 4, np.abs(tlm.CENTROIDS_4BIT)[codes],
+                      np.abs(tlm.CENTROIDS_2BIT)[np.minimum(codes, 3)])
     return 1e-5 * (np.abs(q_rot).astype(np.float64) @ absdeq.T.astype(np.float64)) + 1e-6
 
 
 def code_flip_rows(got_packed: np.ndarray, want_packed: np.ndarray, want_rot: np.ndarray,
-                   prepared: np.ndarray) -> np.ndarray:
-    """Check 4-bit codes against the reference's; return the rows that differ.
+                   prepared: np.ndarray, bits: int = 4, n4_dims: int = 0) -> np.ndarray:
+    """Check codes of any bit mode against the reference's; return the rows
+    that differ.
 
     A code may differ only by one level, and only where the reference's
-    rotated value lies on the boundary between the two levels to within the
-    rotation's rounding (1e-5 * |prepared row|_1 + 1e-6): there another
-    summation order may round to the neighbouring level.
+    rotated value (``want_rot``, in the packed dim order) lies on the
+    boundary between the two levels to within the rotation's rounding
+    (1e-5 * |prepared row|_1 + 1e-6): there another summation order may
+    round to the neighbouring level.
     """
-    got = tqz.unpack_4bit(torch.tensor(got_packed)).numpy().astype(np.int64)
-    want = tqz.unpack_4bit(torch.tensor(want_packed)).numpy().astype(np.int64)
+    got, widths = unpack_codes(got_packed, bits, n4_dims)
+    want, _ = unpack_codes(want_packed, bits, n4_dims)
     rows, cols = np.nonzero(got != want)
     if rows.size:
         assert np.all(np.abs(got[rows, cols] - want[rows, cols]) == 1)
-        edge = tlm.BOUNDARIES_4BIT[np.minimum(got[rows, cols], want[rows, cols])]
+        lower = np.minimum(got[rows, cols], want[rows, cols])
+        edge = np.where(widths[cols] == 4, tlm.BOUNDARIES_4BIT[np.minimum(lower, 14)],
+                        tlm.BOUNDARIES_2BIT[np.minimum(lower, 2)])
         tol = 1e-5 * np.abs(prepared).sum(axis=1)[rows] + 1e-6
         assert np.all(np.abs(want_rot[rows, cols] - edge) <= tol)
     return np.unique(rows)
