@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MonaVec on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--json report.json]
+    python3 chip_smoke.py [--json report.json] [--parent-csrc DIR]
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
@@ -12,12 +12,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
    32768} and at the main shape, the 4-bit scan at b in {1, 7, 64} x
    n in {1, 300, n} (d'=1024), at d'=16, and at n=1,000,000; the sign and
    crumb proxies bit for bit at the same b x n grid, at d' in {8, 16} and
-   at n=1,000,000; the gathered 4-bit rescore at b in {1, 7, 64} x m in
-   {1, 80, 320} (and at d'=16), within tolerance of its plain version and
-   byte for byte against the full-scan kernel at the same (query, row); the
-   2-bit scan at the same b x n grid, at d'=16 and at n=1,000,000; the
-   gathered 2-bit rescore at the same b x m grid, byte for byte against the
-   2-bit scan; mixed 4/2-bit full and gathered scans through column views
+   at n=1,000,000; the 2-bit scan at the same b x n grid, at d'=16 and at
+   n=1,000,000; the gathered 4-bit and 2-bit rescores at b in {1, 7, 64} x
+   m in {1, 33, 80, 320, 1280} (d'=1024) and at d' in {16, 4096}, with
+   candidates of -1 and >= n among them, each within tolerance of its plain
+   version and byte for byte against the full scan of its width at the same
+   (query, row); mixed 4/2-bit full and gathered scans through column views
    of one code tensor (n4 = 512 of d'=1024, and the small splits 4 of 16
    and 36 of 64), and each of the four scan kernels on a view byte-equal to
    its launch on a contiguous copy;
@@ -49,9 +49,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
 5. time each kernel, its plain version and a one-call PyTorch yardstick
    with CUDA events (medians of one launch per sample; each kernel also as
    the mean of 10 back-to-back launches per sample), beside the bound the
-   card could reach (the proxies also at n=1,000,000, the rescore at m in
-   {80, 320}; the 2-bit scan and rescore on the phase-4c 2-bit index, and
-   the mixed scan pair); the
+   card could reach (the proxies also at n=1,000,000; the 2-bit scan on the
+   phase-4c 2-bit index, and the mixed scan pair); the rescores at m in
+   {80, 320} on the cascade's survivors, also as device time from the
+   profiler, beside the `bmm` yardstick timed the same three ways, the bound
+   and the chain floor (with ``--parent-csrc``, a parent's gather_dot.cu
+   built beside them and timed in turns through the same wrapper); the
    end-to-end search rate and encode rate; the cascade's rate and batch
    latency beside the full scan, the same for the 2-bit, mixed and v7 full
    scans and their cascades, and at n=1,000,000 (random codes) the batch
@@ -66,6 +69,8 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -86,7 +91,12 @@ PEAK_INT8_OPS_PER_S = 1979e12
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), 132 SMs, 1.98 GHz.  A design figure of the proxy kernels,
 # not their bound: the card does the same work faster as int8 products.
-PEAK_POPC_PER_S = 132 * 16 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+PEAK_POPC_PER_S = 132 * 16 * SM_CLOCK_HZ
+# A dependent f32 FMA issues 4 cycles after the one it waits on.  The
+# gathered rescores keep one accumulator per score, so d' FMAs in a row
+# bound them from below: a design figure, not the bound.
+FMA_LATENCY_CYCLES = 4
 # The main path's shapes: the paper's headline cell (AG News, 45K x 1024).
 N = 45_000         # corpus rows
 DIM = 1024         # embedding width
@@ -133,10 +143,10 @@ def batch_latencies(search, queries, batches: int) -> dict:
             "p90_ms": 1e3 * lat[int(0.9 * len(lat)) - 1], "batches": len(lat)}
 
 
-def profile_window(torch, fn, label: str, top: int = 10) -> dict:
-    """Device activity (kernels and copies) over one call of ``fn``, traced
-    with torch.profiler: time by name, and the busy time as the union of the
-    activity intervals over the traced window's wall time."""
+def traced(torch, fn) -> tuple:
+    """The device activities (kernels and copies) of one call of ``fn``
+    after a warm-up call, traced with torch.profiler, and the traced wall
+    time in us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -147,8 +157,15 @@ def profile_window(torch, fn, label: str, top: int = 10) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith("Activity Buffer")]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("Activity Buffer")], wall_us
+
+
+def profile_window(torch, fn, label: str, top: int = 10) -> dict:
+    """Device activity over one call of ``fn``: time by name, and the busy
+    time as the union of the activity intervals over the traced window's
+    wall time."""
+    acts, wall_us = traced(torch, fn)
     busy_us, end = 0.0, -math.inf
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in acts):
         busy_us += max(0.0, stop - max(start, end))
@@ -171,6 +188,9 @@ def profile_window(torch, fn, label: str, top: int = 10) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
+    ap.add_argument("--parent-csrc", default=None,
+                    help="a directory holding another commit's gather_dot.cu: build it and "
+                         "time its kernels in turns with these")
     args = ap.parse_args()
 
     import torch
@@ -186,7 +206,7 @@ def main() -> int:
     from repro_torch.core import binary, lloydmax, quantize as qz, rhdh, scoring, standardize
     from repro_torch.core.bruteforce import BruteForceIndex
     from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
-    from repro_torch.kernels import cuda_build, hadamard, ops, ref
+    from repro_torch.kernels import cuda_build, gather_dot, hadamard, ops, ref
     from repro_torch.kernels.binary_dot import crumb_affinity_cuda, sign_hamming_cuda
     from repro_torch.kernels.gather_dot import gather_crumb_dot_cuda, gather_nibble_dot_cuda
     from repro_torch.kernels.nibble_dot import crumb_dot_cuda, nibble_dot_cuda
@@ -213,6 +233,18 @@ def main() -> int:
                 say(f"  {line.strip()}")
     say(f"build total: {build_s:.2f} s")
     report["build_s"] = build_s
+    parent_entries = {}
+    if args.parent_csrc:
+        lib_path = ROOT / "build" / "libgather_dot_parent.so"
+        subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path),
+                        str(Path(args.parent_csrc) / "gather_dot.cu")],
+                       check=True, capture_output=True, timeout=600)
+        parent_lib = ctypes.CDLL(str(lib_path))
+        for fn_name in ("gather_nibble_dot", "gather_crumb_dot"):
+            entry = getattr(parent_lib, fn_name)
+            entry.argtypes, entry.restype = gather_dot._ARGTYPES, ctypes.c_int
+            parent_entries[fn_name] = entry
+        say(f"built the parent's gather_dot.cu from {args.parent_csrc}")
 
     # ---- 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(SEED + 1)
@@ -308,40 +340,6 @@ def main() -> int:
         check_proxy(kind, 64, BIG_N, 1024)
     torch.cuda.empty_cache()
 
-    def check_gather(b: int, m: int, d_pad: int, n: int) -> float:
-        packed = torch.from_numpy(
-            rng.integers(0, 256, size=(n, d_pad // 2), dtype=np.uint8)).to(dev)
-        q = torch.from_numpy(rng.standard_normal((b, d_pad), dtype=np.float32)).to(dev)
-        cand = torch.from_numpy(rng.integers(0, n, size=(b, m)).astype(np.int32)).to(dev)
-        cand[:, 3::7] = -1                 # dead candidates score 0, rows never read
-        valid = cand >= 0
-        got = gather_nibble_dot_cuda(packed, q, cand)
-        want = ref.gather_nibble_dot_ref(packed, q, cand)
-        absdeq = deq_table.abs()[qz.unpack_4bit(packed[cand.long().clamp(min=0)]).long()]
-        tol = 1e-5 * torch.einsum("bd,bmd->bm", q.abs(), absdeq) + 1e-6
-        del absdeq
-        err = (got - want).abs()
-        ok = (got.shape == (b, m) and bool(torch.isfinite(got).all())
-              and bool((err <= tol).all()))
-        full = nibble_dot_cuda(packed, q).gather(1, cand.long().clamp(min=0))
-        same = bool(torch.equal(got[valid], full[valid])) and bool((got[~valid] == 0).all())
-        worst = float(err.max())
-        say(f"gather b={b:>3} m={m:>4} d'={d_pad:>5}: max|err|={worst:.3e} "
-            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}; byte-equal to the "
-            f"full scan at the same rows: {same}")
-        expect(ok, f"gather kernel disagrees at b={b} m={m} d'={d_pad}")
-        expect(same, f"gather kernel is not byte-equal to the full scan at b={b} m={m}")
-        return worst
-
-    gather_err = 0.0
-    for b in (1, 7, 64):
-        for m in (1, 80, 320):
-            worst = check_gather(b, m, 1024, N)
-            if (b, m) == (64, 320):
-                gather_err = worst
-    check_gather(7, 80, 16, 300)
-    torch.cuda.empty_cache()
-
     # 2-bit codes and mixed [4-bit | 2-bit] rows.  The tolerance rule is the
     # 4-bit one, with each dim's |deq| from its own table.
     crumb_table = torch.tensor(lloydmax.CENTROIDS_2BIT, device=dev)
@@ -388,39 +386,51 @@ def main() -> int:
     del main_packed, main_q, main_got, part
     torch.cuda.empty_cache()
 
-    def check_gather_crumb(b: int, m: int, d_pad: int, n: int) -> float:
+    def check_gather(bits: int, b: int, m: int, d_pad: int, n: int) -> float:
+        """A gathered rescore against its plain version and, byte for byte,
+        against the full scan of its width at the same (query, row)."""
+        kernel, plain, scan, label = {
+            4: (gather_nibble_dot_cuda, ref.gather_nibble_dot_ref, nibble_dot_cuda, "gather"),
+            2: (gather_crumb_dot_cuda, ref.gather_crumb_dot_ref, crumb_dot_cuda,
+                "gather crumb")}[bits]
         packed = torch.from_numpy(
-            rng.integers(0, 256, size=(n, d_pad // 4), dtype=np.uint8)).to(dev)
+            rng.integers(0, 256, size=(n, d_pad * bits // 8), dtype=np.uint8)).to(dev)
         q = torch.from_numpy(rng.standard_normal((b, d_pad), dtype=np.float32)).to(dev)
         cand = torch.from_numpy(rng.integers(0, n, size=(b, m)).astype(np.int32)).to(dev)
-        cand[:, 3::7] = -1
-        valid = cand >= 0
-        got = gather_crumb_dot_cuda(packed, q, cand)
-        want = ref.gather_crumb_dot_ref(packed, q, cand)
-        tol = 1e-5 * torch.einsum("bd,bmd->bm", q.abs(),
-                                  abs_deq(packed[cand.long().clamp(min=0)], 2)) + 1e-6
+        cand[:, 3::7] = -1       # dead candidates and rows past the corpus score 0,
+        cand[:, 5::11] = n       # and their rows are never read
+        valid = (cand >= 0) & (cand < n)
+        rows = cand.long().clamp(0, n - 1)
+        got = kernel(packed, q, cand)
+        want = plain(packed, q, cand)
+        tol = 1e-5 * torch.einsum("bd,bmd->bm", q.abs(), abs_deq(packed[rows], bits)) + 1e-6
         err = (got - want).abs()
         ok = (got.shape == (b, m) and bool(torch.isfinite(got).all())
               and bool((err <= tol).all()))
-        full = crumb_dot_cuda(packed, q).gather(1, cand.long().clamp(min=0))
+        full = scan(packed, q).gather(1, rows)
         same = bool(torch.equal(got[valid], full[valid])) and bool((got[~valid] == 0).all())
         worst = float(err.max())
-        say(f"gather crumb b={b:>3} m={m:>4} d'={d_pad:>5}: max|err|={worst:.3e} "
+        say(f"{label} b={b:>3} m={m:>4} d'={d_pad:>5}: max|err|={worst:.3e} "
             f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}; byte-equal to the "
-            f"2-bit scan at the same rows: {same}")
-        expect(ok, f"gathered 2-bit kernel disagrees at b={b} m={m} d'={d_pad}")
-        expect(same, f"gathered 2-bit kernel is not byte-equal to the 2-bit scan at b={b} "
-                     f"m={m}")
+            f"{bits}-bit scan at the same rows: {same}")
+        expect(ok, f"gathered {bits}-bit kernel disagrees at b={b} m={m} d'={d_pad}")
+        expect(same, f"gathered {bits}-bit kernel is not byte-equal to the {bits}-bit scan at "
+                     f"b={b} m={m} d'={d_pad}")
         return worst
 
-    gather_crumb_err = 0.0
-    for b in (1, 7, 64):
-        for m in (1, 80, 320):
-            worst = check_gather_crumb(b, m, 1024, N)
-            if (b, m) == (64, 320):
-                gather_crumb_err = worst
-    check_gather_crumb(7, 80, 16, 300)
-    torch.cuda.empty_cache()
+    gather_errs = {}
+    for bits in (4, 2):
+        for b in (1, 7, 64):
+            for m in (1, 33, 80, 320, 1280):
+                worst = check_gather(bits, b, m, 1024, N)
+                if (b, m) == (64, 320):
+                    gather_errs[bits] = worst
+        for d_pad, n, shapes in ((16, 300, ((7, 80), (7, 33), (64, 320))),
+                                 (4096, N, ((7, 33), (64, 320)))):
+            for b, m in shapes:
+                check_gather(bits, b, m, d_pad, n)
+        torch.cuda.empty_cache()
+    gather_err, gather_crumb_err = gather_errs[4], gather_errs[2]
 
     def check_mixed(n4: int, d_pad: int, n: int, b: int, m: int) -> None:
         """A mixed corpus through ops (two kernels on column views and an
@@ -961,25 +971,8 @@ def main() -> int:
         del big_codes
         torch.cuda.empty_cache()
 
-    live_all = torch.ones(enc.n, dtype=torch.bool, device=dev)
-    sign_proxy = binary.coarse_scan_stage(q_rot, cascades["sign"].backend.enc.ccodes,
-                                          kind="sign")
-    for m in (10 * rm for rm in RESCORE_MULTS):
-        cand = binary.survivor_topk_stage(sign_proxy, live_all, m=m)
-        t = time_ms(lambda: gather_nibble_dot_cuda(enc.packed, q_rot, cand))
-        t_b2b = time_ms(lambda: gather_nibble_dot_cuda(enc.packed, q_rot, cand), reps=B2B)
-        tp = time_ms(lambda: ref.gather_nibble_dot_ref(enc.packed, q_rot, cand), iters=20)
-        rows_f32 = lloydmax.dequantize(qz.unpack_4bit(enc.packed[cand.long()]), 4)
-        tl = time_ms(lambda: torch.bmm(rows_f32, q_rot[:, :, None]))
-        del rows_f32
-        bnd, by = bound_ms(nbytes=b * m * d_pad / 2 + 4.0 * b * d_pad + 8.0 * b * m + 64,
-                           ops=2.0 * b * m * d_pad)
-        timing_new[f"gather_{m}"] = {"kernel": t, "b2b": t_b2b, "plain": tp, "library": tl,
-                                     "bound_ms": bnd, "bound_by": by}
-    del sign_proxy
-
-    # The 2-bit kernels on the phase-4c 2-bit index; yardsticks as for 4-bit:
-    # `q_rot @ deq2.T` and a bmm of the pre-gathered f32 rows.
+    # The 2-bit kernels on the phase-4c 2-bit index; yardstick as for 4-bit:
+    # `q_rot @ deq2.T`.
     enc2 = precision_idx["bits2"].backend.enc
     q_rot2 = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), enc2).contiguous()
     deq2 = qz.decode(enc2)
@@ -992,22 +985,106 @@ def main() -> int:
         nbytes=enc2.n * d_pad / 4 + 4 * b * d_pad + 4 * b * enc2.n,
         ops=2.0 * b * enc2.n * d_pad)
     del deq2
-    crumb_proxy2 = binary.coarse_scan_stage(
-        q_rot2, precision_cascade["bits2"][0].backend.enc.ccodes, kind="crumb")
-    for m in (10 * rm for rm in RESCORE_MULTS):
-        cand = binary.survivor_topk_stage(crumb_proxy2, None, m=m)
-        rows_f32 = lloydmax.dequantize(qz.unpack_2bit(enc2.packed[cand.long()]), 2)
-        bnd, by = bound_ms(nbytes=b * m * d_pad / 4 + 4.0 * b * d_pad + 8.0 * b * m + 16,
-                           ops=2.0 * b * m * d_pad)
-        timing_new[f"gather_crumb_{m}"] = {
-            "kernel": time_ms(lambda: gather_crumb_dot_cuda(enc2.packed, q_rot2, cand)),
-            "b2b": time_ms(lambda: gather_crumb_dot_cuda(enc2.packed, q_rot2, cand), reps=B2B),
-            "plain": time_ms(lambda: ref.gather_crumb_dot_ref(enc2.packed, q_rot2, cand),
-                             iters=20),
-            "library": time_ms(lambda: torch.bmm(rows_f32, q_rot2[:, :, None])),
-            "bound_ms": bnd, "bound_by": by}
-        del rows_f32
-    del crumb_proxy2
+
+    def device_ms(fn, calls: int = B2B) -> float:
+        """Device time per call: the traced durations of the card's kernels
+        over ``calls`` back-to-back calls, divided by ``calls``.  The
+        profiler now and then returns a trace without the card's activity:
+        such a trace is taken again, and after three NaN ("not measured")
+        is returned, never 0."""
+        for _ in range(3):
+            acts, _ = traced(torch, lambda: [fn() for _ in range(calls)])
+            if len(acts) >= calls:
+                return sum(e.time_range.elapsed_us() for e in acts) / calls / 1e3
+        return math.nan
+
+    @contextlib.contextmanager
+    def parent_kernels():
+        """The gather wrappers launch the parent's kernels inside (same host
+        path, so the two differ only on the card)."""
+        saved = dict(gather_dot._ENTRY)
+        gather_dot._ENTRY.update(parent_entries)
+        try:
+            yield
+        finally:
+            gather_dot._ENTRY.update(saved)
+
+    # The gathered rescores on the survivors the cascade picks at m = 10 *
+    # rescore_mult: 4-bit on the phase-4 index after the sign proxy, 2-bit on
+    # the 2-bit index after the crumb proxy.  Each kernel is timed one launch
+    # a sample, back-to-back and as traced device time, and so is its
+    # yardstick, one bmm of the pre-gathered f32 rows.  The chain floor is a
+    # design figure: d' dependent FMAs at FMA_LATENCY_CYCLES each.
+    chain_floor_ms = 1e3 * d_pad * FMA_LATENCY_CYCLES / SM_CLOCK_HZ
+    rescore_inputs = {
+        4: ("gather", gather_nibble_dot_cuda, ref.gather_nibble_dot_ref, qz.unpack_4bit,
+            enc.packed, q_rot, binary.coarse_scan_stage(
+                q_rot, cascades["sign"].backend.enc.ccodes, kind="sign"),
+            torch.ones(enc.n, dtype=torch.bool, device=dev)),
+        2: ("gather_crumb", gather_crumb_dot_cuda, ref.gather_crumb_dot_ref, qz.unpack_2bit,
+            enc2.packed, q_rot2, binary.coarse_scan_stage(
+                q_rot2, precision_cascade["bits2"][0].backend.enc.ccodes, kind="crumb"),
+            None)}
+    for bits, (key, kernel, plain, unpack, packed, qr, proxy, live) in rescore_inputs.items():
+        for m in (10 * rm for rm in RESCORE_MULTS):
+            cand = binary.survivor_topk_stage(proxy, live, m=m)
+            rows_f32 = lloydmax.dequantize(unpack(packed[cand.long()]), bits)
+            bmm = lambda: torch.bmm(rows_f32, qr[:, :, None])
+            run = lambda: kernel(packed, qr, cand)
+            bnd, by = bound_ms(nbytes=b * m * d_pad * bits / 8 + 4.0 * b * d_pad + 8.0 * b * m
+                               + 4 * 2 ** bits, ops=2.0 * b * m * d_pad)
+            e = {"kernel": time_ms(run), "b2b": time_ms(run, reps=B2B),
+                 "device_ms": device_ms(run),
+                 "plain": time_ms(lambda: plain(packed, qr, cand), iters=20),
+                 "library": time_ms(bmm), "library_b2b": time_ms(bmm, reps=B2B),
+                 "library_device_ms": device_ms(bmm), "bound_ms": bnd, "bound_by": by,
+                 "chain_floor_ms": chain_floor_ms}
+            line = (f"rescore {kernel.__name__} m={m}: one launch {e['kernel']['median']:.4f} "
+                    f"ms, back-to-back {e['b2b']['median']:.4f} ms, device "
+                    f"{e['device_ms']:.4f} ms; bmm yardstick {e['library']['median']:.4f} / "
+                    f"{e['library_b2b']['median']:.4f} / {e['library_device_ms']:.4f} ms; "
+                    f"bound {bnd:.4f} ms ({by}); chain floor {chain_floor_ms:.4f} ms (design "
+                    f"figure: {d_pad} dependent FMAs x {FMA_LATENCY_CYCLES} cycles at "
+                    f"{SM_CLOCK_HZ / 1e9:.2f} GHz)")
+            if parent_entries:
+                # In turns: parent, this, this, parent.
+                new_out = run()
+                with parent_kernels():
+                    same = bool(torch.equal(run(), new_out))
+                    p1 = (time_ms(run), time_ms(run, reps=B2B), device_ms(run))
+                again = (time_ms(run), time_ms(run, reps=B2B), device_ms(run))
+                with parent_kernels():
+                    p2 = (time_ms(run), time_ms(run, reps=B2B), device_ms(run))
+                e["parent"] = {"kernel": [p1[0], p2[0]], "b2b": [p1[1], p2[1]],
+                               "device_ms": [p1[2], p2[2]], "equal_bytes": same}
+                e["again"] = {"kernel": again[0], "b2b": again[1], "device_ms": again[2]}
+                line += (f"; in turns parent / this / parent: one launch "
+                         f"{p1[0]['median']:.4f} / {again[0]['median']:.4f} / "
+                         f"{p2[0]['median']:.4f} ms, back-to-back {p1[1]['median']:.4f} / "
+                         f"{again[1]['median']:.4f} / {p2[1]['median']:.4f} ms, device "
+                         f"{p1[2]:.4f} / {again[2]:.4f} / {p2[2]:.4f} ms; same bytes {same}")
+                expect(same, f"{kernel.__name__} m={m}: the parent's kernel gave other bytes")
+            say(line)
+            timing_new[f"{key}_{m}"] = e
+            del rows_f32
+    del rescore_inputs
+    # One candidate alone, a single warp on the card: its device time at two
+    # widths gives the chain's cost a dim, beside the 4-cycle FMA latency.
+    lone_chain = {}
+    for bits, kernel in ((4, gather_nibble_dot_cuda), (2, gather_crumb_dot_cuda)):
+        lone = {}
+        for width in (1024, 4096):
+            codes = torch.from_numpy(
+                rng.integers(0, 256, size=(1000, width * bits // 8), dtype=np.uint8)).to(dev)
+            q1 = torch.from_numpy(rng.standard_normal((1, width), dtype=np.float32)).to(dev)
+            one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+            lone[width] = device_ms(lambda: kernel(codes, q1, one))
+        cycles = (lone[4096] - lone[1024]) * 1e-3 / 3072 * SM_CLOCK_HZ
+        lone_chain[bits] = {"device_ms": lone, "cycles_per_dim": cycles}
+        say(f"rescore {kernel.__name__}, one candidate alone (b=1, m=1): device "
+            f"{lone[1024]:.4f} ms at d'=1024, {lone[4096]:.4f} ms at d'=4096: {cycles:.2f} "
+            f"cycles a dim at {SM_CLOCK_HZ / 1e9:.2f} GHz (the FMA chain alone: "
+            f"{FMA_LATENCY_CYCLES})")
     # The mixed scan as the search runs it: two kernels on column views and
     # one add; its bound is the two blocks' (the codes are 384 B a row).
     encm = precision_idx["mixed"].backend.enc
@@ -1059,7 +1136,7 @@ def main() -> int:
         **timing_old,
         "search_qps": full_lat["qps"], "search_batch_ms_median": full_lat["median_ms"],
         "search_batch_ms_p90": full_lat["p90_ms"], "encode_rows_per_s": N / encode_s,
-        **timing_new,
+        **timing_new, "rescore_lone_candidate": lone_chain,
     }
     report["profile"] = {
         "search": profile_window(torch, lambda: [

@@ -22,43 +22,57 @@ from . import cuda_build
 from .nibble_dot import CODES_PER_BYTE, _lut, row_stride
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("gather_dot")
-    for fn in (lib.gather_nibble_dot, lib.gather_crumb_dot):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+_ENTRY: dict = {}
+
+
+def _entry(fn_name: str):
+    """The C entry point, its ctypes signature set once when the library loads."""
+    fn = _ENTRY.get(fn_name)
+    if fn is None:
+        lib = cuda_build.load("gather_dot")
+        for name in ("gather_nibble_dot", "gather_crumb_dot"):
+            entry = getattr(lib, name)
+            entry.argtypes = _ARGTYPES
+            entry.restype = ctypes.c_int
+            _ENTRY[name] = entry
+        fn = _ENTRY[fn_name]
+    return fn
 
 
 def _gather(wrapper, fn_name: str, bits: int, packed: torch.Tensor, q_rot: torch.Tensor,
             cand: torch.Tensor) -> torch.Tensor:
+    # Every check reads each tensor's shape, stride and device once, and the
+    # device as an index: the rescore is short enough on the card that this
+    # host work is most of its cost.
     name = wrapper.__name__
-    if not (packed.is_cuda and q_rot.device == packed.device == cand.device):
+    index = packed.get_device()
+    if not (packed.is_cuda and q_rot.get_device() == index == cand.get_device()):
         raise ValueError(f"{name} needs its tensors on one CUDA device, got "
                          f"{packed.device}, {q_rot.device} and {cand.device}")
     if packed.dtype != torch.uint8 or q_rot.dtype != torch.float32 or cand.dtype != torch.int32:
         raise ValueError(f"{name} takes uint8 codes, f32 queries and int32 "
                          f"candidates, got {packed.dtype}, {q_rot.dtype} and {cand.dtype}")
     per = CODES_PER_BYTE[bits]
-    if (packed.dim() != 2 or q_rot.dim() != 2 or cand.dim() != 2 or packed.shape[1] == 0
-            or q_rot.shape[1] != per * packed.shape[1] or cand.shape[0] != q_rot.shape[0]):
-        raise ValueError(f"shapes {tuple(packed.shape)}, {tuple(q_rot.shape)} and "
-                         f"{tuple(cand.shape)} are not [n, d'/{per}], [b, d'] and [b, m]")
+    p_shape, q_shape, c_shape = packed.shape, q_rot.shape, cand.shape
+    if (len(p_shape) != 2 or len(q_shape) != 2 or len(c_shape) != 2 or p_shape[1] == 0
+            or q_shape[1] != per * p_shape[1] or c_shape[0] != q_shape[0]):
+        raise ValueError(f"shapes {tuple(p_shape)}, {tuple(q_shape)} and "
+                         f"{tuple(c_shape)} are not [n, d'/{per}], [b, d'] and [b, m]")
     if not cand.is_contiguous():
         raise ValueError(f"{name} takes contiguous candidates")
     code_stride, q_stride = row_stride(name, packed), row_stride(name, q_rot)
-    if q_rot.shape[0] > 65535:
-        raise ValueError(f"{name} takes at most 65535 queries, got {q_rot.shape[0]}")
-    (n, dk), (b, m) = packed.shape, cand.shape
-    out = torch.empty((b, m), dtype=torch.float32, device=packed.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    rc = getattr(lib, fn_name)(packed.data_ptr(), code_stride, q_rot.data_ptr(), q_stride,
-                               cand.data_ptr(), _lut(packed.device, bits).data_ptr(),
-                               out.data_ptr(), b, m, n, per * dk, packed.device.index, stream)
-    cuda_build.check(lib, "gather_dot", rc)
+    (n, dk), (b, m) = p_shape, c_shape
+    if b > 65535:
+        raise ValueError(f"{name} takes at most 65535 queries, got {b}")
+    out = q_rot.new_empty((b, m))
+    rc = _entry(fn_name)(packed.data_ptr(), code_stride, q_rot.data_ptr(), q_stride,
+                         cand.data_ptr(), _lut(index, bits).data_ptr(), out.data_ptr(), b, m,
+                         n, per * dk, index, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        cuda_build.check(cuda_build.load("gather_dot"), "gather_dot", rc)
     if b and m:
         wrapper.launches += 1
     return out

@@ -27,7 +27,7 @@ CODES_PER_BYTE = {4: 2, 2: 4}
 
 
 @functools.lru_cache(maxsize=16)
-def _lut(device: torch.device, bits: int) -> torch.Tensor:
+def _lut(device: torch.device | int, bits: int) -> torch.Tensor:
     return torch.tensor(lloydmax.centroids(bits), device=device)
 
 
@@ -44,10 +44,11 @@ def _lib() -> ctypes.CDLL:
 def row_stride(name: str, t: torch.Tensor) -> int:
     """The row stride of a 2-D tensor whose rows are contiguous, the layout
     the kernels index; raises for any other layout."""
-    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+    shape, stride = t.shape, t.stride()
+    if len(shape) != 2 or (shape[1] > 1 and stride[1] != 1):
         raise ValueError(f"{name} takes 2-D tensors with contiguous rows, got shape "
-                         f"{tuple(t.shape)} and strides {t.stride()}")
-    return t.stride(0) if t.shape[0] > 1 else t.shape[1]   # one row: any stride will do
+                         f"{tuple(shape)} and strides {stride}")
+    return stride[0] if shape[0] > 1 else shape[1]   # one row: any stride will do
 
 
 def _scan(wrapper, fn_name: str, bits: int, packed: torch.Tensor,

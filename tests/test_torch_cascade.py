@@ -199,7 +199,8 @@ def test_crumb_affinity_is_the_level_product():
 # Gathered rescore: within the port's tolerance of the reference.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,d,b,m", [(300, 128, 3, 40), (129, 16, 5, 7), (500, 256, 16, 80)])
+@pytest.mark.parametrize("n,d,b,m", [(300, 128, 3, 40), (129, 16, 5, 7), (500, 256, 16, 80),
+                                     (300, 128, 3, 1), (129, 64, 5, 33), (200, 128, 2, 1280)])
 def test_gathered_scores_match_reference(n, d, b, m):
     rng = np.random.RandomState(n + m)
     packed = rng.randint(0, 256, size=(n, d // 2)).astype(np.uint8)
@@ -209,14 +210,20 @@ def test_gathered_scores_match_reference(n, d, b, m):
     qnorms = (rng.rand(n) + 0.5).astype(np.float32)
     tol = dot_tolerance(q, packed)                                   # [b, n]
     cand_c = np.maximum(cand, 0)
-    tol_g = np.take_along_axis(tol, cand_c, axis=1)
+    # The raw scan also meets rows past the corpus: those and the -1s score 0.
+    cand_raw = cand.copy()
+    cand_raw[-1, 1::4] = n + np.arange(len(cand_raw[-1, 1::4])) % 3
+    valid = (cand_raw >= 0) & (cand_raw < n)
+    rows = np.clip(cand_raw, 0, n - 1)
+    tol_g = np.take_along_axis(tol, rows, axis=1)
     raw = tops.score_gathered_raw(torch.from_numpy(packed), torch.from_numpy(q),
-                                  torch.from_numpy(cand_c), bits=4).numpy()
+                                  torch.from_numpy(cand_raw), bits=4).numpy()
+    assert raw.shape == (b, m) and (raw[~valid] == 0).all()
     for use_kernel in (False, True):
         want = np.asarray(rops.score_gathered_raw(
-            jnp.asarray(packed), jnp.asarray(q), jnp.asarray(cand_c), bits=4,
+            jnp.asarray(packed), jnp.asarray(q), jnp.asarray(rows), bits=4,
             use_kernel=use_kernel, interpret=True))
-        assert np.all(np.abs(raw - want) <= tol_g)
+        assert np.all(np.abs(raw - want)[valid] <= tol_g[valid])
     for metric in ("cosine", "l2"):
         got = tops.score_gathered(torch.from_numpy(packed), torch.from_numpy(q),
                                   torch.from_numpy(cand), bits=4,

@@ -310,20 +310,28 @@ def test_score_raw_matches_reference_and_interpret_kernels(bits, n4_dims):
         assert np.all(np.abs(got - plain.numpy()) <= tol)
 
 
-@pytest.mark.parametrize("bits,n4_dims", SPLITS)
-def test_score_gathered_raw_matches_reference(bits, n4_dims):
+# m=30 keeps the cases' original ids; m in {1, 33, 1280} are the rescore
+# kernels' tiling edges (a lone candidate, one past a warp, many blocks).
+GATHER_CASES = [pytest.param(bits, n4_dims, m, id=f"{bits}-{n4_dims}" + (f"-m{m}" if m != 30
+                                                                       else ""))
+                for m in (30, 1, 33, 1280) for bits, n4_dims in SPLITS]
+
+
+@pytest.mark.parametrize("bits,n4_dims,m", GATHER_CASES)
+def test_score_gathered_raw_matches_reference(bits, n4_dims, m):
     packed, q = _random_codes(200, bits, n4_dims)
-    cand = np.random.RandomState(4).randint(-1, 200, size=(5, 30)).astype(np.int32)
+    cand = np.random.RandomState(4).randint(-1, 200, size=(5, m)).astype(np.int32)
     cand[:, ::7] = -1
+    cand[:, 3::11] = 200 + np.arange(len(cand[0, 3::11])) % 3   # rows past the corpus
     got = tops.score_gathered_raw(torch.from_numpy(packed), torch.from_numpy(q),
                                   torch.from_numpy(cand), bits=bits, n4_dims=n4_dims).numpy()
-    valid = cand >= 0
-    rows = np.clip(cand, 0, None)
+    valid = (cand >= 0) & (cand < 200)
+    rows = np.clip(cand, 0, 199)
     tol = np.take_along_axis(dot_tolerance(q, packed, bits, n4_dims), rows, 1)
     args = jnp.asarray(packed), jnp.asarray(q), jnp.asarray(rows)
     oracle = (rref.gather_crumb_dot_ref(*args) if bits == 2
               else rref.gather_mixed_dot_ref(*args, n4_dims))
-    assert got.shape == (5, 30) and (got[~valid] == 0).all()
+    assert got.shape == (5, m) and (got[~valid] == 0).all()
     assert np.all(np.abs(got - np.asarray(oracle))[valid] <= tol[valid])
     # The reference's tiled paths take no empty block (its gather pads to a
     # zero-width tile); the port skips an empty block.
