@@ -20,7 +20,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
    (query, row); mixed 4/2-bit full and gathered scans through column views
    of one code tensor (n4 = 512 of d'=1024, and the small splits 4 of 16
    and 36 of 64), and each of the four scan kernels on a view byte-equal to
-   its launch on a contiguous copy;
+   its launch on a contiguous copy; with ``--parent-csrc``, the 4-bit and
+   2-bit full scans byte for byte against the parent's kernels at every
+   one of those scan shapes and mixed views;
 4. run the main path: ``MonaVec.build`` (cosine, BruteForce, 4-bit) over the
    seeded AG News stand-in, then 10 batches of 64 queries at k=10, reading
    the kernels' launch counters around it; recall@10 against exact f32
@@ -49,12 +51,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
 5. time each kernel, its plain version and a one-call PyTorch yardstick
    with CUDA events (medians of one launch per sample; each kernel also as
    the mean of 10 back-to-back launches per sample), beside the bound the
-   card could reach (the proxies also at n=1,000,000; the 2-bit scan on the
-   phase-4c 2-bit index, and the mixed scan pair); the rescores at m in
-   {80, 320} on the cascade's survivors, also as device time from the
-   profiler, beside the `bmm` yardstick timed the same three ways, the bound
-   and the chain floor (with ``--parent-csrc``, a parent's gather_dot.cu
-   built beside them and timed in turns through the same wrapper); the
+   card could reach (the proxies also at n=1,000,000); the 4-bit and 2-bit
+   full scans (the 2-bit one on the phase-4c 2-bit index) and the mixed
+   scan pair also as device time (CUDA events around back-to-back calls
+   queued behind a spin kernel), beside their
+   `q_rot @ deq.T` yardstick timed the same three ways, and the 4-bit
+   scan's device time at 2 and 3 tiles for each SM; the rescores at m in
+   {80, 320} on the cascade's survivors the same three ways beside the
+   `bmm` yardstick, the bound and the chain floor (with ``--parent-csrc``,
+   a parent's nibble_dot.cu and gather_dot.cu built beside them, and the
+   scans and rescores timed in turns through the same wrappers); the
    end-to-end search rate and encode rate; the cascade's rate and batch
    latency beside the full scan, the same for the 2-bit, mixed and v7 full
    scans and their cascades, and at n=1,000,000 (random codes) the batch
@@ -143,10 +149,11 @@ def batch_latencies(search, queries, batches: int) -> dict:
             "p90_ms": 1e3 * lat[int(0.9 * len(lat)) - 1], "batches": len(lat)}
 
 
-def traced(torch, fn) -> tuple:
-    """The device activities (kernels and copies) of one call of ``fn``
-    after a warm-up call, traced with torch.profiler, and the traced wall
-    time in us."""
+def profile_window(torch, fn, label: str, top: int = 10) -> dict:
+    """Device activity (kernels and copies) over one call of ``fn`` after a
+    warm-up call, traced with torch.profiler: time by name, and the busy
+    time as the union of the activity intervals over the traced window's
+    wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,15 +164,8 @@ def traced(torch, fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith("Activity Buffer")], wall_us
-
-
-def profile_window(torch, fn, label: str, top: int = 10) -> dict:
-    """Device activity over one call of ``fn``: time by name, and the busy
-    time as the union of the activity intervals over the traced window's
-    wall time."""
-    acts, wall_us = traced(torch, fn)
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("Activity Buffer")]
     busy_us, end = 0.0, -math.inf
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in acts):
         busy_us += max(0.0, stop - max(start, end))
@@ -189,8 +189,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
     ap.add_argument("--parent-csrc", default=None,
-                    help="a directory holding another commit's gather_dot.cu: build it and "
-                         "time its kernels in turns with these")
+                    help="a directory holding another commit's nibble_dot.cu and gather_dot.cu: "
+                         "build them, hold the full scans byte for byte against them and time "
+                         "the scans and rescores in turns with these")
     args = ap.parse_args()
 
     import torch
@@ -206,7 +207,7 @@ def main() -> int:
     from repro_torch.core import binary, lloydmax, quantize as qz, rhdh, scoring, standardize
     from repro_torch.core.bruteforce import BruteForceIndex
     from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
-    from repro_torch.kernels import cuda_build, gather_dot, hadamard, ops, ref
+    from repro_torch.kernels import cuda_build, gather_dot, hadamard, nibble_dot, ops, ref
     from repro_torch.kernels.binary_dot import crumb_affinity_cuda, sign_hamming_cuda
     from repro_torch.kernels.gather_dot import gather_crumb_dot_cuda, gather_nibble_dot_cuda
     from repro_torch.kernels.nibble_dot import crumb_dot_cuda, nibble_dot_cuda
@@ -233,18 +234,53 @@ def main() -> int:
                 say(f"  {line.strip()}")
     say(f"build total: {build_s:.2f} s")
     report["build_s"] = build_s
+    # With --parent-csrc, the parent's scan and rescore sources are built
+    # beside these (one nvcc each, in parallel) and bound to the same
+    # wrappers by `parent_kernels()`, so the two differ only on the card.
     parent_entries = {}
     if args.parent_csrc:
-        lib_path = ROOT / "build" / "libgather_dot_parent.so"
-        subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path),
-                        str(Path(args.parent_csrc) / "gather_dot.cu")],
-                       check=True, capture_output=True, timeout=600)
-        parent_lib = ctypes.CDLL(str(lib_path))
-        for fn_name in ("gather_nibble_dot", "gather_crumb_dot"):
-            entry = getattr(parent_lib, fn_name)
-            entry.argtypes, entry.restype = gather_dot._ARGTYPES, ctypes.c_int
-            parent_entries[fn_name] = entry
-        say(f"built the parent's gather_dot.cu from {args.parent_csrc}")
+        procs = {}
+        for source in ("nibble_dot", "gather_dot"):
+            lib_path = ROOT / "build" / f"lib{source}_parent.so"
+            procs[source] = (subprocess.Popen(
+                [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path),
+                 str(Path(args.parent_csrc) / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib_path)
+        for source, (proc, lib_path) in procs.items():
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for the parent's {source}.cu:\n{log}")
+            parent_lib = ctypes.CDLL(str(lib_path))
+            module = {"nibble_dot": nibble_dot, "gather_dot": gather_dot}[source]
+            names = (("nibble_dot", "crumb_dot") if source == "nibble_dot"
+                     else ("gather_nibble_dot", "gather_crumb_dot"))
+            for fn_name in names:
+                entry = getattr(parent_lib, fn_name)
+                entry.argtypes, entry.restype = module._ARGTYPES, ctypes.c_int
+                parent_entries[fn_name] = (module, entry)
+        say(f"built the parent's nibble_dot.cu and gather_dot.cu from {args.parent_csrc}")
+
+    @contextlib.contextmanager
+    def parent_kernels():
+        """The scan and rescore wrappers launch the parent's kernels inside
+        (same host path, so the two differ only on the card)."""
+        nibble_dot._entry("nibble_dot")
+        gather_dot._entry("gather_nibble_dot")
+        saved = {name: module._ENTRY[name] for name, (module, _) in parent_entries.items()}
+        for name, (module, entry) in parent_entries.items():
+            module._ENTRY[name] = entry
+        try:
+            yield
+        finally:
+            for name, (module, _) in parent_entries.items():
+                module._ENTRY[name] = saved[name]
+
+    def same_as_parent(fn, *args) -> bool:
+        """``fn(*args)`` gives the bytes the parent's kernel gives."""
+        got = fn(*args)
+        with parent_kernels():
+            want = fn(*args)
+        return bool(torch.equal(got, want))
 
     # ---- 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(SEED + 1)
@@ -286,8 +322,13 @@ def main() -> int:
         ok = (got.shape == (b, n) and bool(torch.isfinite(got).all())
               and bool((err <= tol).all()))
         worst = float(err.max())
+        parent = ""
+        if parent_entries:
+            same = same_as_parent(nibble_dot_cuda, packed, q)
+            parent = f"; byte-equal to the parent's kernel: {same}"
+            expect(same, f"scan kernel differs from the parent's at b={b} n={n} d'={d_pad}")
         say(f"scan   b={b:>3} n={n:>7} d'={d_pad:>5}: max|err|={worst:.3e} "
-            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}")
+            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}{parent}")
         expect(ok, f"scan kernel disagrees at b={b} n={n} d'={d_pad}")
         return worst, packed, q, got
 
@@ -364,8 +405,14 @@ def main() -> int:
         ok = (got.shape == (b, n) and bool(torch.isfinite(got).all())
               and bool((err <= tol).all()))
         worst = float(err.max())
+        parent = ""
+        if parent_entries:
+            same = same_as_parent(crumb_dot_cuda, packed, q)
+            parent = f"; byte-equal to the parent's kernel: {same}"
+            expect(same, f"2-bit scan kernel differs from the parent's at b={b} n={n} "
+                         f"d'={d_pad}")
         say(f"crumb scan b={b:>3} n={n:>7} d'={d_pad:>5}: max|err|={worst:.3e} "
-            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}")
+            f"(tol 1e-5*sum|q*deq|+1e-6) {'ok' if ok else 'MISMATCH'}{parent}")
         expect(ok, f"2-bit scan kernel disagrees at b={b} n={n} d'={d_pad}")
         return worst, packed, q, got
 
@@ -460,9 +507,17 @@ def main() -> int:
             extra = (cand,) if gathered else ()
             views[name] = bool(torch.equal(fn(pv, qv, *extra),
                                            fn(pv.contiguous(), qv.contiguous(), *extra)))
+        parent = ""
+        if parent_entries:
+            as_parent = {name: same_as_parent(fn, *blocks[bits])
+                         for name, fn, bits in (("nibble_dot", nibble_dot_cuda, 4),
+                                                ("crumb_dot", crumb_dot_cuda, 2))}
+            parent = f"; scans on the views byte-equal to the parent's kernels: {as_parent}"
+            expect(all(as_parent.values()), f"a scan kernel on a view differs from the "
+                                            f"parent's at n4={n4} d'={d_pad}: {as_parent}")
         say(f"mixed n4={n4:>3} of d'={d_pad:>5} n={n:>6} b={b:>2} m={m:>3}: full scan within "
             f"tol {ok}; gathered within tol {g_ok} and byte-equal to the full scan {same}; "
-            f"view == contiguous: {views}")
+            f"view == contiguous: {views}{parent}")
         expect(ok and g_ok, f"mixed scan disagrees at n4={n4} d'={d_pad}")
         expect(same, f"mixed gathered scan is not byte-equal to the full scan at n4={n4}")
         expect(all(views.values()), f"a kernel on a view differs from its contiguous launch "
@@ -884,18 +939,110 @@ def main() -> int:
         return {"median": times[iters // 2], "p": p, "p_ms": times[int(p * iters) - 1],
                 "samples": iters, "launches_per_sample": reps}
 
+    def device_ms(fn, calls: int = B2B, samples: int = 5) -> float:
+        """Device time per call: CUDA events around ``calls`` back-to-back
+        calls queued behind a spin kernel, so the card runs them without
+        waiting for the host; the median of ``samples``.  The spin is
+        doubled until the host has queued every call before it ends (the
+        events' first gap proves it)."""
+        fn()
+        torch.cuda.synchronize()
+        spin = int(1e-3 * SM_CLOCK_HZ)
+        times = []
+        while len(times) < samples:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+            torch.cuda._sleep(spin)
+            marks[1].record()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            queued_ms = 1e3 * (time.perf_counter() - t0)
+            marks[2].record()
+            marks[2].synchronize()
+            if queued_ms >= marks[0].elapsed_time(marks[1]):
+                spin *= 2      # the card caught up with the host: not a device time
+                continue
+            times.append(marks[1].elapsed_time(marks[2]) / calls)
+        times.sort()
+        return times[samples // 2]
+
+    def three_ways(fn) -> tuple:
+        """One launch a sample, back-to-back, and device time."""
+        return time_ms(fn), time_ms(fn, reps=B2B), device_ms(fn)
+
+    def parent_turns(run) -> tuple:
+        """With --parent-csrc: ``run`` through the parent's kernels, this
+        commit's, and the parent's again, each timed three ways (the caller
+        timed this commit's first), and whether the two give the same bytes.
+        Returns the report entries and a line of text."""
+        new_out = run()
+        with parent_kernels():
+            same = bool(torch.equal(run(), new_out))
+            p1 = three_ways(run)
+        again = three_ways(run)
+        with parent_kernels():
+            p2 = three_ways(run)
+        entries = {"parent": {"kernel": [p1[0], p2[0]], "b2b": [p1[1], p2[1]],
+                              "device_ms": [p1[2], p2[2]], "equal_bytes": same},
+                   "again": {"kernel": again[0], "b2b": again[1], "device_ms": again[2]}}
+        text = (f"; in turns parent / this / parent: one launch {p1[0]['median']:.4f} / "
+                f"{again[0]['median']:.4f} / {p2[0]['median']:.4f} ms, back-to-back "
+                f"{p1[1]['median']:.4f} / {again[1]['median']:.4f} / {p2[1]['median']:.4f} ms, "
+                f"device {p1[2]:.4f} / {again[2]:.4f} / {p2[2]:.4f} ms; same bytes {same}")
+        return entries, text, same
+
+    def time_scan(label: str, run, plain, library, nbytes: float, ops: float) -> dict:
+        """A full scan and its one-call yardstick, each timed three ways,
+        its plain version, its bound, and with --parent-csrc the parent's
+        kernel in turns."""
+        t, t_b2b, t_dev = three_ways(run)
+        l, l_b2b, l_dev = three_ways(library)
+        e = {"kernel": t, "b2b": t_b2b, "device_ms": t_dev,
+             "plain": time_ms(plain, iters=20),
+             "library": l, "library_b2b": l_b2b, "library_device_ms": l_dev}
+        e["bound_ms"], e["bound_by"] = bound_ms(nbytes=nbytes, ops=ops)
+        line = (f"{label}: one launch {t['median']:.4f} ms, back-to-back "
+                f"{t_b2b['median']:.4f} ms, device {t_dev:.4f} ms ("
+                f"{e['bound_ms'] / t_dev:.1%} of the bound); yardstick {l['median']:.4f} / "
+                f"{l_b2b['median']:.4f} / {l_dev:.4f} ms; bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']})")
+        if parent_entries:
+            turns, text, same = parent_turns(run)
+            e.update(turns)
+            line += text
+            expect(same, f"{label}: the parent's kernel gave other bytes")
+        say(line)
+        return e
+
+    # The full scans at the main shape: the 4-bit scan on the phase-4 index,
+    # its yardstick one f32 matmul of the dequantized rows, `q_rot @ deq.T`.
     d_pad = enc.dim_pad
     b = 64
     q_rot = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), enc).contiguous()
     deq_f32 = qz.decode(enc)
-    t_scan = time_ms(lambda: nibble_dot_cuda(enc.packed, q_rot))
-    t_scan_b2b = time_ms(lambda: nibble_dot_cuda(enc.packed, q_rot), reps=B2B)
-    t_scan_plain = time_ms(lambda: ref.nibble_dot_ref(enc.packed, q_rot), iters=20)
-    t_scan_lib = time_ms(lambda: torch.matmul(q_rot, deq_f32.T))
+    scan_timing = time_scan(
+        "time nibble_dot", lambda: nibble_dot_cuda(enc.packed, q_rot),
+        lambda: ref.nibble_dot_ref(enc.packed, q_rot), lambda: torch.matmul(q_rot, deq_f32.T),
+        nbytes=enc.n * d_pad / 2 + 4 * b * d_pad + 4 * b * enc.n, ops=2.0 * b * enc.n * d_pad)
     del deq_f32
-    scan_bound, scan_by = bound_ms(
-        nbytes=enc.n * d_pad / 2 + 4 * b * d_pad + 4 * b * enc.n,
-        ops=2.0 * b * enc.n * d_pad)
+    t_scan, t_scan_plain, t_scan_lib = (scan_timing["kernel"], scan_timing["plain"],
+                                        scan_timing["library"])
+    scan_bound, scan_by = scan_timing["bound_ms"], scan_timing["bound_by"]
+    # How the tiles of 64 queries x 128 rows fill the card: the 4-bit scan's
+    # device time at corpora of 2 and 3 tiles for each SM and at the main
+    # shape between them (random codes, b=64).
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile_fill = {}
+    for rows in (2 * sms * 128, N, 3 * sms * 128):
+        codes = torch.from_numpy(
+            rng.integers(0, 256, size=(rows, d_pad // 2), dtype=np.uint8)).to(dev)
+        tile_fill[rows] = {"tiles": -(-rows // 128),
+                           "device_ms": device_ms(lambda: nibble_dot_cuda(codes, q_rot))}
+        del codes
+    say("tile fill (4-bit scan, b=64): " + ", ".join(
+        f"n={rows}: {e['tiles']} tiles on {sms} SMs, device {e['device_ms']:.4f} ms"
+        for rows, e in tile_fill.items()))
 
     x = standardize.prepare(torch.from_numpy(corpus).to(dev), "cosine").contiguous()
     signs = rhdh.rademacher_signs(enc.seed, d_pad, dev)
@@ -905,11 +1052,20 @@ def main() -> int:
     t_fwht_b2b = time_ms(lambda: hadamard.fwht_cuda(x, signs, d_pad), reps=B2B)
     t_fwht_plain = time_ms(lambda: hadamard.signed_fwht_plain(x, signs, d_pad))
     t_fwht_lib = time_ms(lambda: torch.matmul(xs, h_dense))
-    del xs, h_dense
     fwht_bound, fwht_by = bound_ms(
         nbytes=4.0 * x.shape[0] * (x.shape[1] + d_pad) + 4 * d_pad,
         ops=float(x.shape[0]) * d_pad * math.log2(d_pad))
-    del x
+    # The butterfly also at the shape a search gives it: one batch of 64.
+    xq = standardize.prepare(torch.from_numpy(queries[:b]).to(dev), "cosine").contiguous()
+    xqs = (rhdh.pad_to_pow2(xq, d_pad) * signs).contiguous()
+    fwht_query = dict(zip(("kernel", "b2b", "device_ms"),
+                          three_ways(lambda: hadamard.fwht_cuda(xq, signs, d_pad))))
+    fwht_query.update(plain=time_ms(lambda: hadamard.signed_fwht_plain(xq, signs, d_pad)),
+                      library=time_ms(lambda: torch.matmul(xqs, h_dense)))
+    fwht_query["bound_ms"], fwht_query["bound_by"] = bound_ms(
+        nbytes=4.0 * b * (xq.shape[1] + d_pad) + 4 * d_pad, ops=float(b) * d_pad * math.log2(d_pad))
+    say(f"fwht at [{b}, {d_pad}] (a search): device {fwht_query['device_ms']:.4f} ms a launch")
+    del xs, h_dense, x, xq, xqs
 
     # The cascade's kernels.  Yardsticks, timed only: the proxies as one f32
     # matmul of the +-1 sign planes (= d' - 2 hamming) or of the crumb level
@@ -957,7 +1113,7 @@ def main() -> int:
                 "bound_by": by, "rows": n_rows, "popcounts": pops,
                 "popc_unit_ms": 1e3 * pops / PEAK_POPC_PER_S}
 
-    timing_new = {}
+    timing_new = {"fwht_query": fwht_query}
     qcodes_main = {"sign": binary.query_sign_bits(q_rot),
                    "crumb": binary.query_crumb_planes(q_rot)}
     for kind in ("sign", "crumb"):
@@ -976,43 +1132,17 @@ def main() -> int:
     enc2 = precision_idx["bits2"].backend.enc
     q_rot2 = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), enc2).contiguous()
     deq2 = qz.decode(enc2)
-    timing_new["crumb_scan"] = {
-        "kernel": time_ms(lambda: crumb_dot_cuda(enc2.packed, q_rot2)),
-        "b2b": time_ms(lambda: crumb_dot_cuda(enc2.packed, q_rot2), reps=B2B),
-        "plain": time_ms(lambda: ref.crumb_dot_ref(enc2.packed, q_rot2), iters=20),
-        "library": time_ms(lambda: torch.matmul(q_rot2, deq2.T))}
-    timing_new["crumb_scan"]["bound_ms"], timing_new["crumb_scan"]["bound_by"] = bound_ms(
+    timing_new["crumb_scan"] = time_scan(
+        "time crumb_dot", lambda: crumb_dot_cuda(enc2.packed, q_rot2),
+        lambda: ref.crumb_dot_ref(enc2.packed, q_rot2), lambda: torch.matmul(q_rot2, deq2.T),
         nbytes=enc2.n * d_pad / 4 + 4 * b * d_pad + 4 * b * enc2.n,
         ops=2.0 * b * enc2.n * d_pad)
     del deq2
 
-    def device_ms(fn, calls: int = B2B) -> float:
-        """Device time per call: the traced durations of the card's kernels
-        over ``calls`` back-to-back calls, divided by ``calls``.  The
-        profiler now and then returns a trace without the card's activity:
-        such a trace is taken again, and after three NaN ("not measured")
-        is returned, never 0."""
-        for _ in range(3):
-            acts, _ = traced(torch, lambda: [fn() for _ in range(calls)])
-            if len(acts) >= calls:
-                return sum(e.time_range.elapsed_us() for e in acts) / calls / 1e3
-        return math.nan
-
-    @contextlib.contextmanager
-    def parent_kernels():
-        """The gather wrappers launch the parent's kernels inside (same host
-        path, so the two differ only on the card)."""
-        saved = dict(gather_dot._ENTRY)
-        gather_dot._ENTRY.update(parent_entries)
-        try:
-            yield
-        finally:
-            gather_dot._ENTRY.update(saved)
-
     # The gathered rescores on the survivors the cascade picks at m = 10 *
     # rescore_mult: 4-bit on the phase-4 index after the sign proxy, 2-bit on
     # the 2-bit index after the crumb proxy.  Each kernel is timed one launch
-    # a sample, back-to-back and as traced device time, and so is its
+    # a sample, back-to-back and as device time, and so is its
     # yardstick, one bmm of the pre-gathered f32 rows.  The chain floor is a
     # design figure: d' dependent FMAs at FMA_LATENCY_CYCLES each.
     chain_floor_ms = 1e3 * d_pad * FMA_LATENCY_CYCLES / SM_CLOCK_HZ
@@ -1047,22 +1177,9 @@ def main() -> int:
                     f"figure: {d_pad} dependent FMAs x {FMA_LATENCY_CYCLES} cycles at "
                     f"{SM_CLOCK_HZ / 1e9:.2f} GHz)")
             if parent_entries:
-                # In turns: parent, this, this, parent.
-                new_out = run()
-                with parent_kernels():
-                    same = bool(torch.equal(run(), new_out))
-                    p1 = (time_ms(run), time_ms(run, reps=B2B), device_ms(run))
-                again = (time_ms(run), time_ms(run, reps=B2B), device_ms(run))
-                with parent_kernels():
-                    p2 = (time_ms(run), time_ms(run, reps=B2B), device_ms(run))
-                e["parent"] = {"kernel": [p1[0], p2[0]], "b2b": [p1[1], p2[1]],
-                               "device_ms": [p1[2], p2[2]], "equal_bytes": same}
-                e["again"] = {"kernel": again[0], "b2b": again[1], "device_ms": again[2]}
-                line += (f"; in turns parent / this / parent: one launch "
-                         f"{p1[0]['median']:.4f} / {again[0]['median']:.4f} / "
-                         f"{p2[0]['median']:.4f} ms, back-to-back {p1[1]['median']:.4f} / "
-                         f"{again[1]['median']:.4f} / {p2[1]['median']:.4f} ms, device "
-                         f"{p1[2]:.4f} / {again[2]:.4f} / {p2[2]:.4f} ms; same bytes {same}")
+                turns, text, same = parent_turns(run)
+                e.update(turns)
+                line += text
                 expect(same, f"{kernel.__name__} m={m}: the parent's kernel gave other bytes")
             say(line)
             timing_new[f"{key}_{m}"] = e
@@ -1090,22 +1207,17 @@ def main() -> int:
     encm = precision_idx["mixed"].backend.enc
     q_rotm = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), encm).contiguous()
     deqm = qz.decode(encm)
-    timing_new["mixed_scan"] = {
-        "kernel": time_ms(lambda: ops.score_raw(encm.packed, q_rotm, bits=3,
-                                                n4_dims=encm.n4_dims)),
-        "b2b": time_ms(lambda: ops.score_raw(encm.packed, q_rotm, bits=3,
-                                             n4_dims=encm.n4_dims), reps=B2B),
-        "plain": time_ms(lambda: ref.mixed_dot_ref(encm.packed, q_rotm, encm.n4_dims),
-                         iters=20),
-        "library": time_ms(lambda: torch.matmul(q_rotm, deqm.T))}
-    timing_new["mixed_scan"]["bound_ms"], timing_new["mixed_scan"]["bound_by"] = bound_ms(
+    timing_new["mixed_scan"] = time_scan(
+        "time mixed scan (two kernels + add)",
+        lambda: ops.score_raw(encm.packed, q_rotm, bits=3, n4_dims=encm.n4_dims),
+        lambda: ref.mixed_dot_ref(encm.packed, q_rotm, encm.n4_dims),
+        lambda: torch.matmul(q_rotm, deqm.T),
         nbytes=encm.n * encm.bytes_per_vector() + 4 * b * d_pad + 4 * b * encm.n,
         ops=2.0 * b * encm.n * d_pad)
     del deqm
 
     timing_old = {
-        "scan": {"kernel": t_scan, "b2b": t_scan_b2b, "plain": t_scan_plain,
-                 "library": t_scan_lib, "bound_ms": scan_bound, "bound_by": scan_by},
+        "scan": scan_timing,
         "fwht": {"kernel": t_fwht, "b2b": t_fwht_b2b, "plain": t_fwht_plain,
                  "library": t_fwht_lib, "bound_ms": fwht_bound, "bound_by": fwht_by}}
     for name, e in {**timing_old, **timing_new}.items():
@@ -1136,7 +1248,7 @@ def main() -> int:
         **timing_old,
         "search_qps": full_lat["qps"], "search_batch_ms_median": full_lat["median_ms"],
         "search_batch_ms_p90": full_lat["p90_ms"], "encode_rows_per_s": N / encode_s,
-        **timing_new, "rescore_lone_candidate": lone_chain,
+        **timing_new, "rescore_lone_candidate": lone_chain, "scan_tile_fill": tile_fill,
     }
     report["profile"] = {
         "search": profile_window(torch, lambda: [

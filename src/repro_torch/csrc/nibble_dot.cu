@@ -17,31 +17,62 @@
 // ([n4/2 bytes of nibbles | (d'-n4)/4 bytes of crumbs] per row) are scanned
 // as column views of one tensor, with no copy.
 //
-// Design: one block computes a 64-query x 128-row tile.  Each step loads 32
-// dims of both operands into shared memory, dequantizing the codes through
-// a 16- or 4-float table on the way, and every thread then updates a 4 x 8
-// register tile with f32 FMAs on the CUDA cores (no TF32 tensor cores: they
-// would change the numbers).  A step reads 16 bytes of a 4-bit row or 8 of
-// a 2-bit row, split between two loader threads.
-//
-// Determinism: every score is ONE f32 accumulator updated with k ascending
-// over 0..d-1.  No atomics, no split-K, so a score depends only on its query
-// row and corpus row, never on b or on which queries share the launch, and
-// the gathered kernels of gather_dot.cu, which keep the same order, give
-// the same bytes.  A ragged n or b is masked inside the kernel.
-//
-// Loads: the kVec instance reads codes in 8-byte (4-bit) or 4-byte (2-bit)
-// words and queries in 16-byte vectors; the entry points launch it where
-// d % 32 == 0 and the pointers and strides are aligned for those loads.
-// Otherwise (d < 32, or a block that starts or strides off alignment, as
-// the small mixed splits do) the same arithmetic runs with bounds-checked
-// scalar loads.
+// The numbers: every score is ONE f32 accumulator that starts at 0.0f and
+// is updated as fmaf(q[k], lut[code_k], acc) for k = 0..d-1 ascending.  No
+// split-K, no atomics, no tensor cores, so a score depends only on its
+// query row and corpus row, never on b, n or the tile it falls in.  The
+// gathered rescores of gather_dot.cu run the same chain, which is why a
+// cascade returns the full scan's scores byte for byte; a change of order
+// here would have to be made there in the same change.  Dims past d in the
+// last step have q = 0, and fmaf(0, x, acc) == acc (the accumulator is
+// never -0).
 //
 // Bound on an NVIDIA H100 80GB HBM3 (700.00 W power limit), from its
 // published rates: 2 b n d' flops against (n d' bits/8 + 4 b d' + 4 b n)
 // bytes.  At b=64, n=45000, d'=1024 that is 5.90 GFLOP (88 us at 67 TFLOP/s
 // of non-tensor f32) against 34.8 MB (4-bit, 10 us at 3.35 TB/s) or 23.3 MB
-// (2-bit, 7 us): both compute-bound, so 2 bits buy memory, not time.
+// (2-bit, 7 us): both bound by the f32 FMA rate, so 2 bits buy memory, not
+// time, and the design is about keeping the FMA pipes issuing.
+//
+// Design.  A block of 128 threads computes a 64-query x 128-row tile and at
+// most 3 blocks share an SM (registers capped at 168 a thread, 69 KB of
+// shared memory a block), so the 352 tiles of the main shape run in one
+// wave on 132 SMs.  d' is walked in steps of 32 dims:
+//   - a ring of 3 stages in shared memory is filled with cp.async: thread t
+//     copies row t's 16 (4-bit) or 8 (2-bit) code bytes of a step and 4 of
+//     the step's 512 16-byte query chunks, so two steps are in flight while
+//     this step's FMAs run;
+//   - each thread decodes the code bytes it copied itself (its own
+//     cp.async.wait makes them visible to it) through the 16- or 4-float
+//     table into a double-buffered f32 level tile, stored [row][dim] with
+//     16-byte stores, so every code is decoded once a block and its level
+//     serves all 64 queries;
+//   - one barrier a step publishes the next step's levels and queries;
+//   - each thread holds an 8 x 8 register tile (queries ty + 8i, rows
+//     tx + 16j).  Per 4 dims it reads 8 query and 8 level vectors of 4
+//     dims (16-byte loads; rows padded to 36 floats, so the 8 rows a
+//     quarter-warp reads cover the 32 banks once) and runs 256 FMAs.
+// The output leaves in 64-byte coalesced runs of a row.  Where d % 32 != 0,
+// d < 32, or a pointer or stride is off a load's alignment (the small mixed
+// splits), the same kernel's scalar instance fills the ring with
+// bounds-checked synchronous loads instead of cp.async; the steps, the
+// decode and the chain are the same.
+//
+// What holds it below the bound (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W):
+// ablation probes (not kept) found the FMA loop itself, with its operands
+// already in registers, issuing well below the f32 rate (register-file
+// bank conflicts left by ptxas's allocation, which CUDA C does not
+// control), and at n=45000 the 352 tiles fill 3 of an SM's slots on 88 SMs
+// and 2 on 44, so the time is that of 396 tiles (chip_smoke.py times both).
+// The decode, the copies and the barrier cost less than either.
+//
+// Why not tensor cores: any mma/wgmma form sums products in the hardware's
+// order, so the scores would change bits and the gathered kernels would
+// have to move with them in the same change.  On the CUDA cores this
+// kernel takes 0.157 ms (4-bit) and 0.159-0.160 ms (2-bit) of device time
+// at b=64, n=45000, d'=1024, 55-56% of the f32 rate, against 0.19 ms for
+// the single-buffered 64 x 128 kernel it replaced (chip_smoke.py on an
+// NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libnibble_dot.so nibble_dot.cu
@@ -51,48 +82,150 @@
 
 namespace {
 
-constexpr int BQ = 64;    // queries per block
-constexpr int BN = 128;   // corpus rows per block
-constexpr int BK = 32;    // dims per shared-memory step
-constexpr int TQ = 4;     // queries per thread
-constexpr int TN = 8;     // corpus rows per thread: columns tx*4+j and 64+tx*4+j
-constexpr int kThreads = (BQ / TQ) * (BN / TN);   // 256
+constexpr int BQ = 64;       // queries per block
+constexpr int BN = 128;      // corpus rows per block
+constexpr int BK = 32;       // dims per pipeline step
+constexpr int TQ = 8;        // queries per thread: ty + 8 i
+constexpr int TN = 8;        // corpus rows per thread: tx + 16 j
+constexpr int kThreads = (BQ / TQ) * (BN / TN);   // 128: one corpus row each to load
+constexpr int kStages = 3;   // ring depth
+constexpr int kMinBlocks = 3;  // resident blocks an SM: caps registers at 168
+constexpr int RP = BK + 4;   // staged row of a step, floats (padded against bank conflicts)
+constexpr int kQueryChunks = BQ * BK / 4 / kThreads;   // 16-byte query chunks a thread copies
+static_assert(kThreads == BN, "each thread copies and decodes one corpus row");
+
+template <int kBits>
+struct Layout {
+    static constexpr int kCodes = 8 / kBits;           // codes per byte
+    static constexpr int kMask = (1 << kBits) - 1;
+    static constexpr int kLevels = 1 << kBits;
+    static constexpr int kRowBytes = BK / kCodes;      // code bytes of a row a step: 16 or 8
+    static constexpr int kQFloats = kStages * BQ * RP;
+    static constexpr int kCFloats = 2 * BN * RP;
+    static constexpr int kRawBytes = kStages * BN * kRowBytes;
+    static constexpr int kSmemBytes = 4 * (kQFloats + kCFloats) + kRawBytes + 4 * kLevels;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An asynchronous copy of kBytes (16 or 8) from global to shared memory;
+// with valid false nothing is read and the destination is zero-filled.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+    const int n = valid ? kBytes : 0;
+    if constexpr (kBytes == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+    }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
 
 template <int kBits, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_kernel(const uint8_t* __restrict__ packed, int64_t code_stride,
             const float* __restrict__ q, int64_t q_stride,
             const float* __restrict__ lut_g,
             float* __restrict__ out,
             int b, int n, int d) {
-    constexpr int kCodes = 8 / kBits;              // codes per byte
-    constexpr int kMask = (1 << kBits) - 1;
-    constexpr int kLevels = 1 << kBits;
-    constexpr int kPart = BK / kCodes / 2;         // bytes a loader thread reads per step
-
-    __shared__ __align__(16) float qs[BK][BQ];
-    __shared__ __align__(16) float cs[BK][BN];
-    __shared__ float lut[kLevels];
+    using L = Layout<kBits>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* qs = reinterpret_cast<float*>(smem);               // [kStages][BQ][RP] queries
+    float* cs = qs + L::kQFloats;                             // [2][BN][RP] decoded levels
+    uint8_t* raw = reinterpret_cast<uint8_t*>(cs + L::kCFloats);   // [kStages][BN][kRowBytes]
+    float* lut = reinterpret_cast<float*>(raw + L::kRawBytes);
 
     const int tid = threadIdx.x;
-    if (tid < kLevels) lut[tid] = lut_g[tid];
+    if (tid < L::kLevels) lut[tid] = lut_g[tid];
 
     const int n0 = blockIdx.x * BN;
     const int q0 = blockIdx.y * BQ;
-    const int tx = tid % (BN / TN);     // 0..15
-    const int ty = tid / (BN / TN);     // 0..15
-    const int dk = d / kCodes;          // packed bytes per row
+    const int tx = tid % (BN / TN);
+    const int ty = tid / (BN / TN);     // 0..7
+    const int dk = d / L::kCodes;       // packed bytes per row
+    const int steps = (d + BK - 1) / BK;
 
-    // Loader roles: corpus row c_row, bytes [c_part*kPart, +kPart) of the
-    // step (dims [c_part*16, +16)); query row q_row, dims [q_part*8, +8).
-    const int c_row = tid % BN;
-    const int c_part = tid / BN;
-    const int q_row = tid / 4;
-    const int q_part = tid % 4;
-    const int gr = n0 + c_row;
-    const int gq = q0 + q_row;
-    const uint8_t* prow = packed + static_cast<int64_t>(gr) * code_stride;
-    const float* qrow = q + static_cast<int64_t>(gq) * q_stride;
+    // Loader role: corpus row n0 + tid.  A row past n is never read (its
+    // copies zero-fill from row 0's address) and its column is not written.
+    const bool row_ok = n0 + tid < n;
+    const uint8_t* prow = packed + static_cast<int64_t>(row_ok ? n0 + tid : 0) * code_stride;
+
+    // Fill ring slot s % kStages with step s: this thread's code bytes and
+    // query chunks.  Every call commits one cp.async group (empty past the
+    // last step), so the wait below always counts the same groups.
+    auto copy_step = [&](int s) {
+        if (s < steps) {
+            const int slot = s % kStages;
+            const int k0 = s * BK;
+            const int kb = k0 / L::kCodes;
+            uint8_t* craw = raw + (slot * BN + tid) * L::kRowBytes;
+            if constexpr (kVec) {
+                cp_async<L::kRowBytes>(craw, prow + kb, row_ok);
+            } else {
+#pragma unroll
+                for (int j = 0; j < L::kRowBytes; ++j) {
+                    craw[j] = (row_ok && kb + j < dk) ? prow[kb + j] : 0;
+                }
+            }
+            float* qslot = qs + slot * BQ * RP;
+#pragma unroll
+            for (int r = 0; r < kQueryChunks; ++r) {
+                const int c = tid + kThreads * r;
+                const int qr = c / (BK / 4);
+                const int kq = k0 + (c % (BK / 4)) * 4;
+                const int gq = q0 + qr;
+                float* dst = qslot + qr * RP + (c % (BK / 4)) * 4;
+                const float* src = q + static_cast<int64_t>(gq < b ? gq : 0) * q_stride + kq;
+                if constexpr (kVec) {
+                    cp_async<16>(dst, src, gq < b);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) dst[e] = (gq < b && kq + e < d) ? src[e] : 0.0f;
+                }
+            }
+        }
+        cp_async_commit();
+    };
+
+    // Decode this thread's code bytes of step s into row tid of level tile
+    // s & 1 (stored [row][dim], four dims a 16-byte store).
+    auto decode = [&](int s) {
+        const uint8_t* craw = raw + ((s % kStages) * BN + tid) * L::kRowBytes;
+        uint32_t w[L::kRowBytes / 4];
+        if constexpr (L::kRowBytes == 16) {
+            const uint4 x = *reinterpret_cast<const uint4*>(craw);
+            w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+        } else {
+            const uint2 x = *reinterpret_cast<const uint2*>(craw);
+            w[0] = x.x; w[1] = x.y;
+        }
+        float level[BK];
+#pragma unroll
+        for (int j = 0; j < L::kRowBytes; ++j) {
+#pragma unroll
+            for (int c = 0; c < L::kCodes; ++c) {
+                level[j * L::kCodes + c] = lut[(w[j / 4] >> (8 * (j % 4) + kBits * c)) & L::kMask];
+            }
+        }
+        float* crow = cs + (s & 1) * BN * RP + tid * RP;
+#pragma unroll
+        for (int m = 0; m < BK / 4; ++m) {
+            *reinterpret_cast<float4*>(crow + 4 * m) =
+                make_float4(level[4 * m], level[4 * m + 1], level[4 * m + 2], level[4 * m + 3]);
+        }
+    };
 
     float acc[TQ][TN];
 #pragma unroll
@@ -101,86 +234,62 @@ scan_kernel(const uint8_t* __restrict__ packed, int64_t code_stride,
         for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
     __syncthreads();   // the table is in shared memory
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) copy_step(s);
+    cp_async_wait<kStages - 2>();    // step 0 has landed
+    decode(0);
+    __syncthreads();
 
-    for (int k0 = 0; k0 < d; k0 += BK) {
-        // ---- corpus: kPart bytes -> 16 dequantized dims, stored [dim][row]
-        const int kb = k0 / kCodes + c_part * kPart;
-        uint8_t bytes[kPart];
-        bool valid[kPart];
-        if (kVec) {
-            uint32_t w[2] = {0u, 0u};
-            if (gr < n) {
-                if constexpr (kPart == 8) {
-                    const uint2 v = *reinterpret_cast<const uint2*>(prow + kb);
-                    w[0] = v.x;
-                    w[1] = v.y;
-                } else {
-                    w[0] = *reinterpret_cast<const uint32_t*>(prow + kb);
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < kPart; ++j) {
-                bytes[j] = static_cast<uint8_t>(w[j / 4] >> (8 * (j % 4)));
-                valid[j] = gr < n;
-            }
-        } else {
-#pragma unroll
-            for (int j = 0; j < kPart; ++j) {
-                valid[j] = gr < n && kb + j < dk;
-                bytes[j] = valid[j] ? prow[kb + j] : 0;
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < kPart; ++j)
-#pragma unroll
-            for (int c = 0; c < kCodes; ++c) {
-                const int dim = c_part * (BK / 2) + j * kCodes + c;
-                cs[dim][c_row] = valid[j] ? lut[(bytes[j] >> (kBits * c)) & kMask] : 0.0f;
-            }
+    for (int t = 0; t < steps; ++t) {
+        // Slot (t-1) % kStages is free: its queries were read by the FMAs of
+        // step t-1 and its codes decoded before them, all before the last
+        // barrier.  Level tile (t+1) & 1 was last read by step t-1's FMAs.
+        copy_step(t + kStages - 1);
+        cp_async_wait<kStages - 2>();    // this thread's copies of step t+1 have landed
+        if (t + 1 < steps) decode(t + 1);
 
-        // ---- queries: 8 dims, stored [dim][query]
-        const int kq = k0 + q_part * 8;
-        if (kVec) {
-            float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-            float4 c = a;
-            if (gq < b) {
-                a = *reinterpret_cast<const float4*>(qrow + kq);
-                c = *reinterpret_cast<const float4*>(qrow + kq + 4);
+        const float* qslot = qs + (t % kStages) * BQ * RP;
+        const float* cbuf = cs + (t & 1) * BN * RP;
+#pragma unroll 4
+        for (int k4 = 0; k4 < BK; k4 += 4) {
+            float4 a[TQ], c[TN];
+#pragma unroll
+            for (int i = 0; i < TQ; ++i) {
+                a[i] = *reinterpret_cast<const float4*>(qslot + (ty + BQ / TQ * i) * RP + k4);
             }
-            const float v[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
 #pragma unroll
-            for (int j = 0; j < 8; ++j) qs[q_part * 8 + j][q_row] = v[j];
-        } else {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                qs[q_part * 8 + j][q_row] = (gq < b && kq + j < d) ? qrow[kq + j] : 0.0f;
+            for (int j = 0; j < TN; ++j) {
+                c[j] = *reinterpret_cast<const float4*>(cbuf + (tx + BN / TN * j) * RP + k4);
             }
-        }
-        __syncthreads();
-
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-            const float4 a = *reinterpret_cast<const float4*>(&qs[k][ty * TQ]);
-            const float4 c0 = *reinterpret_cast<const float4*>(&cs[k][tx * 4]);
-            const float4 c1 = *reinterpret_cast<const float4*>(&cs[k][64 + tx * 4]);
-            const float av[TQ] = {a.x, a.y, a.z, a.w};
-            const float cv[TN] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+            // Dim k4 for every (query, row) pair, then k4 + 1, k4 + 2, k4 + 3.
 #pragma unroll
             for (int i = 0; i < TQ; ++i)
 #pragma unroll
-                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
+                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].x, c[j].x, acc[i][j]);
+#pragma unroll
+            for (int i = 0; i < TQ; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].y, c[j].y, acc[i][j]);
+#pragma unroll
+            for (int i = 0; i < TQ; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].z, c[j].z, acc[i][j]);
+#pragma unroll
+            for (int i = 0; i < TQ; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].w, c[j].w, acc[i][j]);
         }
-        __syncthreads();
+        __syncthreads();   // step t+1's level tile and queries are visible to all
     }
 
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
-        const int row = q0 + ty * TQ + i;
+        const int row = q0 + ty + BQ / TQ * i;
         if (row >= b) continue;
         float* orow = out + static_cast<int64_t>(row) * n;
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-            const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+            const int col = n0 + tx + BN / TN * j;
             if (col < n) orow[col] = acc[i][j];
         }
     }
@@ -190,12 +299,41 @@ bool aligned(const void* p, int64_t bytes) {
     return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// Opts an instance into its dynamic shared memory (above the 48 KB default)
+// and the largest shared-memory carveout, once per device.
+template <int kBits, bool kVec>
+cudaError_t configure(int device) {
+    constexpr int kDevices = 64;
+    static bool done[kDevices] = {};
+    if (device >= 0 && device < kDevices && done[device]) return cudaSuccess;
+    auto kernel = scan_kernel<kBits, kVec>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Layout<kBits>::kSmemBytes);
+    if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+    }
+    if (err == cudaSuccess && device >= 0 && device < kDevices) done[device] = true;
+    return err;
+}
+
+template <int kBits, bool kVec>
+cudaError_t launch(const dim3& grid, cudaStream_t s, int device, const uint8_t* packed,
+                   int64_t code_stride, const float* q, int64_t q_stride, const float* lut,
+                   float* out, int b, int n, int d) {
+    cudaError_t err = configure<kBits, kVec>(device);
+    if (err != cudaSuccess) return err;
+    scan_kernel<kBits, kVec><<<grid, kThreads, Layout<kBits>::kSmemBytes, s>>>(
+        packed, code_stride, q, q_stride, lut, out, b, n, d);
+    return cudaGetLastError();
+}
+
 template <int kBits>
 int launch_scan(const uint8_t* packed, int64_t code_stride, const float* q,
                 int64_t q_stride, const float* lut, float* out, int b, int n, int d,
                 int device, void* stream) {
     constexpr int kCodes = 8 / kBits;
-    constexpr int kWord = BK / kCodes / 2;   // bytes of one code load in the kVec instance
+    constexpr int kRowBytes = Layout<kBits>::kRowBytes;   // one cp.async of codes
     if (d < kCodes || d % kCodes || code_stride < d / kCodes || q_stride < d) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -204,16 +342,13 @@ int launch_scan(const uint8_t* packed, int64_t code_stride, const float* q,
     if (b == 0 || n == 0) return 0;
     const dim3 grid((n + BN - 1) / BN, (b + BQ - 1) / BQ);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool vec = d % BK == 0 && aligned(packed, kWord) && code_stride % kWord == 0 &&
+    const bool vec = d % BK == 0 && aligned(packed, kRowBytes) && code_stride % kRowBytes == 0 &&
                      aligned(q, 16) && q_stride % 4 == 0;
-    if (vec) {
-        scan_kernel<kBits, true><<<grid, kThreads, 0, s>>>(packed, code_stride, q, q_stride,
-                                                           lut, out, b, n, d);
-    } else {
-        scan_kernel<kBits, false><<<grid, kThreads, 0, s>>>(packed, code_stride, q, q_stride,
-                                                            lut, out, b, n, d);
-    }
-    return static_cast<int>(cudaGetLastError());
+    err = vec ? launch<kBits, true>(grid, s, device, packed, code_stride, q, q_stride, lut,
+                                    out, b, n, d)
+              : launch<kBits, false>(grid, s, device, packed, code_stride, q, q_stride, lut,
+                                     out, b, n, d);
+    return static_cast<int>(err);
 }
 
 }  // namespace

@@ -31,14 +31,23 @@ def _lut(device: torch.device | int, bits: int) -> torch.Tensor:
     return torch.tensor(lloydmax.centroids(bits), device=device)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("nibble_dot")
-    for fn in (lib.nibble_dot, lib.crumb_dot):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ENTRY: dict = {}
+
+
+def _entry(fn_name: str):
+    """The C entry point, its ctypes signature set once when the library loads."""
+    fn = _ENTRY.get(fn_name)
+    if fn is None:
+        lib = cuda_build.load("nibble_dot")
+        for name in ("nibble_dot", "crumb_dot"):
+            entry = getattr(lib, name)
+            entry.argtypes = _ARGTYPES
+            entry.restype = ctypes.c_int
+            _ENTRY[name] = entry
+        fn = _ENTRY[fn_name]
+    return fn
 
 
 def row_stride(name: str, t: torch.Tensor) -> int:
@@ -67,13 +76,13 @@ def _scan(wrapper, fn_name: str, bits: int, packed: torch.Tensor,
                          f"[n, d'/{per}] and [b, d'] with d' > 0")
     code_stride, q_stride = row_stride(name, packed), row_stride(name, q_rot)
     (n, dk), b = packed.shape, q_rot.shape[0]
-    out = torch.empty((b, n), dtype=torch.float32, device=packed.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    rc = getattr(lib, fn_name)(packed.data_ptr(), code_stride, q_rot.data_ptr(),
-                               q_stride, _lut(packed.device, bits).data_ptr(),
-                               out.data_ptr(), b, n, per * dk, packed.device.index, stream)
-    cuda_build.check(lib, "nibble_dot", rc)
+    index = packed.get_device()
+    out = q_rot.new_empty((b, n))
+    rc = _entry(fn_name)(packed.data_ptr(), code_stride, q_rot.data_ptr(), q_stride,
+                         _lut(index, bits).data_ptr(), out.data_ptr(), b, n, per * dk, index,
+                         torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        cuda_build.check(cuda_build.load("nibble_dot"), "nibble_dot", rc)
     if b and n:
         wrapper.launches += 1
     return out

@@ -19,6 +19,7 @@ from repro_torch.core import quantize as tqz
 from repro_torch.core import rhdh as trhdh
 from repro_torch.core import scoring as tscoring
 from repro_torch.core.convert import encoded_from_arrays
+from repro_torch.kernels import cuda_build as tcuda_build
 from repro_torch.kernels import hadamard as thadamard
 from repro_torch.kernels import nibble_dot as tnibble
 from repro_torch.kernels import ops as tops
@@ -130,6 +131,21 @@ def test_nibble_dot_cuda_refuses_before_building(bad):
         q = torch.zeros(3, 64)
     with pytest.raises(ValueError):
         tnibble.nibble_dot_cuda(packed, q)
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 1, 48), (7, 129, 48), (65, 300, 1024)])
+@pytest.mark.parametrize("fn", ["nibble_dot_cuda", "crumb_dot_cuda"])
+def test_scan_wrappers_refuse_ragged_cpu_shapes_without_building(fn, b, n, d, monkeypatch):
+    # Ragged b and n (a partial 64 x 128 tile) and d' not a whole 32-dim
+    # step: the wrapper raises for CPU tensors before it loads any library.
+    loads = []
+    monkeypatch.setattr(tcuda_build, "load", loads.append)
+    wrapper = getattr(tnibble, fn)
+    per = tnibble.CODES_PER_BYTE[4 if fn == "nibble_dot_cuda" else 2]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        wrapper(torch.zeros(n, d // per, dtype=torch.uint8), torch.zeros(b, d))
+    assert loads == [] and wrapper.launches == before
 
 
 def test_other_bit_widths_raise():
