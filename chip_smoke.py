@@ -8,11 +8,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
 1. check the card and print its ``nvidia-smi`` name and power limit;
 2. build the four CUDA sources (src/repro_torch/csrc/) with nvcc, in parallel;
 3. hold each kernel against its plain PyTorch version on the card, from
-   numpy-seeded inputs: the Hadamard kernel at d' in {8, 16, 1024, 4096,
-   32768} and at the main shape, the 4-bit scan at b in {1, 7, 64} x
+   numpy-seeded inputs: the Hadamard kernel byte for byte against the
+   stage-order butterfly and within tolerance of the Kronecker version at
+   every d' = 2^0 .. 2^17 (d ragged and whole, rows at and off 16-byte
+   alignment), at d' in {8, 16, 1024, 4096, 32768, 65536, 131072, 2^20,
+   2^21} and at the main shape, the 4-bit scan at b in {1, 7, 64} x
    n in {1, 300, n} (d'=1024), at d'=16, and at n=1,000,000; the sign and
-   crumb proxies bit for bit at the same b x n grid, at d' in {8, 16} and
-   at n=1,000,000; the 2-bit scan at the same b x n grid, at d'=16 and at
+   crumb proxies bit for bit at the same b x n grid, at d' in {8, 16, 136,
+   4096}, at odd n, at b=65 and at n=1,000,000; the 2-bit scan at the same
+   b x n grid, at d'=16 and at
    n=1,000,000; the gathered 4-bit and 2-bit rescores at b in {1, 7, 64} x
    m in {1, 33, 80, 320, 1280} (d'=1024) and at d' in {16, 4096}, with
    candidates of -1 and >= n among them, each within tolerance of its plain
@@ -20,9 +24,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
    (query, row); mixed 4/2-bit full and gathered scans through column views
    of one code tensor (n4 = 512 of d'=1024, and the small splits 4 of 16
    and 36 of 64), and each of the four scan kernels on a view byte-equal to
-   its launch on a contiguous copy; with ``--parent-csrc``, the 4-bit and
-   2-bit full scans byte for byte against the parent's kernels at every
-   one of those scan shapes and mixed views;
+   its launch on a contiguous copy; each gathered rescore at b=65,536 (two
+   launches) byte-equal to its two halves; with ``--parent-csrc``, the
+   4-bit and 2-bit full scans, the Hadamard kernel and both proxies byte
+   for byte against the parent's kernels at every one of those shapes the
+   parent takes;
 4. run the main path: ``MonaVec.build`` (cosine, BruteForce, 4-bit) over the
    seeded AG News stand-in, then 10 batches of 64 queries at k=10, reading
    the kernels' launch counters around it; recall@10 against exact f32
@@ -48,10 +54,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
    round trip, and for crumb the plain cascade on the CPU over 2 batches;
 4d. the paper's Fig. 3: 4-bit, mixed (leading), mixed (v7) and 2-bit
    encodes of its anisotropic 4,000 x 1024 corpus, recall@10 printed;
+4e. a corpus wider than one block's butterfly: ``build`` and ``search`` of
+   2,000 rows of d=40,000 (d'=65536) on the card against the CPU plain path
+   (code flips, ids);
 5. time each kernel, its plain version and a one-call PyTorch yardstick
    with CUDA events (medians of one launch per sample; each kernel also as
    the mean of 10 back-to-back launches per sample), beside the bound the
-   card could reach (the proxies also at n=1,000,000); the 4-bit and 2-bit
+   card could reach (the proxies also at n=1,000,000; the butterfly and the
+   proxies also as device time, and with ``--parent-csrc`` in turns with the
+   parent's kernels); the 4-bit and 2-bit
    full scans (the 2-bit one on the phase-4c 2-bit index) and the mixed
    scan pair also as device time (CUDA events around back-to-back calls
    queued behind a spin kernel), beside their
@@ -95,8 +106,8 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12
 # 32-bit popcounts on the CUDA cores: 16 per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-# throughput), 132 SMs, 1.98 GHz.  A design figure of the proxy kernels,
-# not their bound: the card does the same work faster as int8 products.
+# throughput), 132 SMs, 1.98 GHz.  A design figure of the sign kernel,
+# not its bound: the card does the same work faster as int8 products.
 SM_CLOCK_HZ = 1.98e9
 PEAK_POPC_PER_S = 132 * 16 * SM_CLOCK_HZ
 # A dependent f32 FMA issues 4 cycles after the one it waits on.  The
@@ -114,6 +125,7 @@ BIG_BATCHES = 20   # timed query batches of 64 at n=1,000,000
 PERM_SAMPLE = 512  # rotated rows the v7 permutation is taken from (paper_tables.py)
 PRECISIONS = ("bits2", "mixed", "v7")   # phase 4c's indexes
 CPU_CASCADE_BATCHES = 2   # batches of the CPU plain crumb cascade in phase 4c
+WIDE_N, WIDE_DIM = 2000, 40000   # phase 4e: d' = 65536, past one block's butterfly
 
 FAILURES: list = []
 
@@ -189,9 +201,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
     ap.add_argument("--parent-csrc", default=None,
-                    help="a directory holding another commit's nibble_dot.cu and gather_dot.cu: "
-                         "build them, hold the full scans byte for byte against them and time "
-                         "the scans and rescores in turns with these")
+                    help="a directory holding another commit's nibble_dot.cu, gather_dot.cu, "
+                         "hadamard.cu and binary_dot.cu: build them, hold the full scans, the "
+                         "butterfly and the proxies byte for byte against them and time the "
+                         "kernels in turns with these")
     args = ap.parse_args()
 
     import torch
@@ -207,7 +220,8 @@ def main() -> int:
     from repro_torch.core import binary, lloydmax, quantize as qz, rhdh, scoring, standardize
     from repro_torch.core.bruteforce import BruteForceIndex
     from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
-    from repro_torch.kernels import cuda_build, gather_dot, hadamard, nibble_dot, ops, ref
+    from repro_torch.kernels import (binary_dot, cuda_build, gather_dot, hadamard, nibble_dot,
+                                     ops, ref)
     from repro_torch.kernels.binary_dot import crumb_affinity_cuda, sign_hamming_cuda
     from repro_torch.kernels.gather_dot import gather_crumb_dot_cuda, gather_nibble_dot_cuda
     from repro_torch.kernels.nibble_dot import crumb_dot_cuda, nibble_dot_cuda
@@ -221,7 +235,15 @@ def main() -> int:
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    report: dict = {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    # The host CPU picks the kernels of the CPU plain paths compared against
+    # below (ROADMAP C item 2).
+    cpu_model = next((line.split(":", 1)[1].strip() for line in
+                      Path("/proc/cpuinfo").read_text().splitlines()
+                      if line.startswith("model name")), "unknown")
+    say(f"host CPU {cpu_model}, torch CPU capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads")
+    report: dict = {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+                    "host_cpu": cpu_model}
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -234,13 +256,17 @@ def main() -> int:
                 say(f"  {line.strip()}")
     say(f"build total: {build_s:.2f} s")
     report["build_s"] = build_s
-    # With --parent-csrc, the parent's scan and rescore sources are built
-    # beside these (one nvcc each, in parallel) and bound to the same
-    # wrappers by `parent_kernels()`, so the two differ only on the card.
+    # With --parent-csrc, the parent's sources are built beside these (one
+    # nvcc each, in parallel) and bound to the same wrappers by
+    # `parent_kernels()`, so the two differ only on the card.
+    sources = {"nibble_dot": (nibble_dot, ("nibble_dot", "crumb_dot")),
+               "gather_dot": (gather_dot, ("gather_nibble_dot", "gather_crumb_dot")),
+               "hadamard": (hadamard, ("fwht_rows",)),
+               "binary_dot": (binary_dot, ("sign_hamming", "crumb_affinity"))}
     parent_entries = {}
     if args.parent_csrc:
         procs = {}
-        for source in ("nibble_dot", "gather_dot"):
+        for source in sources:
             lib_path = ROOT / "build" / f"lib{source}_parent.so"
             procs[source] = (subprocess.Popen(
                 [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path),
@@ -251,21 +277,20 @@ def main() -> int:
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed for the parent's {source}.cu:\n{log}")
             parent_lib = ctypes.CDLL(str(lib_path))
-            module = {"nibble_dot": nibble_dot, "gather_dot": gather_dot}[source]
-            names = (("nibble_dot", "crumb_dot") if source == "nibble_dot"
-                     else ("gather_nibble_dot", "gather_crumb_dot"))
+            module, names = sources[source]
             for fn_name in names:
                 entry = getattr(parent_lib, fn_name)
                 entry.argtypes, entry.restype = module._ARGTYPES, ctypes.c_int
                 parent_entries[fn_name] = (module, entry)
-        say(f"built the parent's nibble_dot.cu and gather_dot.cu from {args.parent_csrc}")
+        say(f"built the parent's {', '.join(f'{s}.cu' for s in sources)} from "
+            f"{args.parent_csrc}")
 
     @contextlib.contextmanager
     def parent_kernels():
-        """The scan and rescore wrappers launch the parent's kernels inside
-        (same host path, so the two differ only on the card)."""
-        nibble_dot._entry("nibble_dot")
-        gather_dot._entry("gather_nibble_dot")
+        """The kernel wrappers launch the parent's kernels inside (same host
+        path, so the two differ only on the card)."""
+        for module, names in sources.values():
+            module._entry(names[0])
         saved = {name: module._ENTRY[name] for name, (module, _) in parent_entries.items()}
         for name, (module, entry) in parent_entries.items():
             module._ENTRY[name] = entry
@@ -275,22 +300,36 @@ def main() -> int:
             for name, (module, _) in parent_entries.items():
                 module._ENTRY[name] = saved[name]
 
+    def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+        """Equal shapes, dtypes and bytes (so +0.0 and -0.0 differ)."""
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return bool(torch.equal(a, b))
+
     def same_as_parent(fn, *args) -> bool:
         """``fn(*args)`` gives the bytes the parent's kernel gives."""
         got = fn(*args)
         with parent_kernels():
             want = fn(*args)
-        return bool(torch.equal(got, want))
+        return same_bytes(got, want)
 
     # ---- 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(SEED + 1)
     fwht_err = {}
 
-    def check_fwht(n: int, d: int) -> float:
+    def check_fwht(n: int, d: int, offset: int = 0) -> float:
+        """The butterfly kernel byte for byte against its stage-order plain
+        version, within tolerance of the Kronecker one and, with
+        --parent-csrc, byte for byte against the parent's kernel wherever
+        it takes d'.  ``offset`` floats shift x off 16-byte alignment."""
         d_pad = rhdh.next_pow2(d)
-        x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+        flat = torch.from_numpy(rng.standard_normal(n * d + offset, dtype=np.float32)).to(dev)
+        x = flat[offset:].view(n, d)
         signs = rhdh.rademacher_signs(1234 + d, d_pad, dev)
         got = hadamard.fwht_cuda(x, signs, d_pad)
+        same = same_bytes(got, hadamard.signed_fwht_butterfly(x, signs, d_pad))
         want = hadamard.signed_fwht_plain(x, signs, d_pad)
         torch.cuda.synchronize()
         # Both sum the same +-x_i in another order: a per-row bound in ||x||_1.
@@ -298,12 +337,27 @@ def main() -> int:
         err = (got - want).abs()
         ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
         worst = float(err.max())
-        say(f"fwht   n={n:>6} d={d:>5} d'={d_pad:>5}: max|err|={worst:.3e} "
-            f"(tol 1e-5*|x|_1+1e-6) {'ok' if ok else 'MISMATCH'}")
+        parent = ""
+        if parent_entries and d_pad <= 32768:
+            as_parent = same_as_parent(hadamard.fwht_cuda, x, signs, d_pad)
+            parent = f"; byte-equal to the parent's kernel: {as_parent}"
+            expect(as_parent, f"fwht kernel differs from the parent's at n={n} d={d}")
+        say(f"fwht   n={n:>6} d={d:>7} d'={d_pad:>7}{' off 16 B' if offset else ''}: byte-equal "
+            f"to the butterfly {same}; vs Kronecker max|err|={worst:.3e} (tol "
+            f"1e-5*|x|_1+1e-6) {'ok' if ok else 'MISMATCH'}{parent}")
+        expect(same, f"fwht kernel is not byte-equal to the butterfly at n={n} d={d}")
         expect(ok, f"fwht kernel disagrees at n={n} d={d}")
         return worst
 
-    for n, d in [(1000, 5), (1000, 16), (4096, 1000), (1024, 4096), (64, 32768)]:
+    # Every single-pass instance (d' = 2^0 .. 2^15) and the two-pass form,
+    # d whole and ragged, rows aligned and not.
+    for log_d in range(18):
+        d_pad = 1 << log_d
+        for d in sorted({d_pad, d_pad // 2 + 1 + d_pad // 5}):
+            check_fwht(33, d)
+        check_fwht(33, d_pad, offset=1)
+    for n, d in [(1000, 5), (1000, 16), (4096, 1000), (1024, 4096), (64, 32768), (64, 40000),
+                 (16, 131072), (4, 1 << 20), (2, 1 << 21)]:
         check_fwht(n, d)
     fwht_err["main"] = check_fwht(N, DIM)
 
@@ -368,16 +422,23 @@ def main() -> int:
               and bool(torch.equal(got, want)))
         proxy_err[kind] = max(proxy_err.get(kind, 0.0),
                               float((got.long() - want.long()).abs().max()))
+        parent = ""
+        if parent_entries:
+            as_parent = same_as_parent(fn, codes, qcodes)
+            parent = f"; bit-equal to the parent's kernel: {as_parent}"
+            expect(as_parent, f"{kind} kernel differs from the parent's at b={b} n={n} "
+                              f"d'={d_pad}")
         say(f"{kind:<6} b={b:>3} n={n:>7} d'={d_pad:>5}: "
-            f"{'bit-equal' if ok else 'MISMATCH'}")
+            f"{'bit-equal' if ok else 'MISMATCH'}{parent}")
         expect(ok, f"{kind} kernel differs from its plain version at b={b} n={n} d'={d_pad}")
 
     for kind in proxy_fns:
         for b in (1, 7, 64):
             for n in (1, 300, N):
                 check_proxy(kind, b, n, 1024)
-        for d_pad in (8, 16):
-            check_proxy(kind, 7, 300, d_pad)
+        for d_pad in (8, 16, 136, 4096):
+            check_proxy(kind, 7, 301, d_pad)
+        check_proxy(kind, 65, 301, 1024)
         check_proxy(kind, 64, BIG_N, 1024)
     torch.cuda.empty_cache()
 
@@ -478,6 +539,25 @@ def main() -> int:
                 check_gather(bits, b, m, d_pad, n)
         torch.cuda.empty_cache()
     gather_err, gather_crumb_err = gather_errs[4], gather_errs[2]
+    # More queries than one launch takes (its grid's 65,535): the wrapper
+    # launches twice, and each score is the one its half gives alone.
+    for bits, kernel in ((4, gather_nibble_dot_cuda), (2, gather_crumb_dot_cuda)):
+        b_big, half = 65536, 32768
+        packed = torch.from_numpy(
+            rng.integers(0, 256, size=(300, 1024 * bits // 8), dtype=np.uint8)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b_big, 1024), dtype=np.float32)).to(dev)
+        cand = torch.from_numpy(rng.integers(-1, 300, size=(b_big, 16)).astype(np.int32)).to(dev)
+        before = kernel.launches
+        whole = kernel(packed, q, cand)
+        launched = kernel.launches - before
+        halves = torch.cat([kernel(packed, q[:half], cand[:half]),
+                            kernel(packed, q[half:], cand[half:])])
+        same = same_bytes(whole, halves)
+        say(f"{kernel.__name__} at b={b_big}: {launched} launches, byte-equal to its two "
+            f"halves: {same}")
+        expect(same and launched == 2, f"{kernel.__name__} at b={b_big} is not its two halves")
+        del packed, q, cand, whole, halves
+    torch.cuda.empty_cache()
 
     def check_mixed(n4: int, d_pad: int, n: int, b: int, m: int) -> None:
         """A mixed corpus through ops (two kernels on column views and an
@@ -774,11 +854,14 @@ def main() -> int:
         p_recall = recall_of(p_ids)
         cpu_p = build_precision(name, "cpu")
         cpu_s, cpu_i = cpu_p.search(queries, k=10)
+        cpu_s2, cpu_i2 = cpu_p.search(queries, k=10)
+        cpu_repeat = cpu_s.tobytes() == cpu_s2.tobytes() and cpu_i.tobytes() == cpu_i2.tobytes()
         p_recall_cpu = recall_of(cpu_i)
         p_same = float(np.mean(cpu_i == p_ids))
         say(f"{name}: recall@10 {p_recall:.4f} vs exact f32 cosine; CPU plain path recall@10 "
             f"{p_recall_cpu:.4f}, ids equal in {p_same:.4%} of slots, max|score diff| "
-            f"{float(np.max(np.abs(cpu_s - p_scores))):.3e}")
+            f"{float(np.max(np.abs(cpu_s - p_scores))):.3e}; CPU plain search repeated "
+            f"byte-identical: {cpu_repeat}")
         expect(abs(p_recall - p_recall_cpu) <= 0.01, f"{name}: recall differs from the CPU")
         expect(p_same >= 0.99, f"{name}: ids differ from the CPU plain path in over 1% of slots")
         s2, i2 = pidx.search(queries[:64], k=10)
@@ -873,7 +956,8 @@ def main() -> int:
             "bits": penc.bits, "n4_dims": penc.n4_dims, "bytes_per_row": penc.bytes_per_vector(),
             "build_s": p_build_s, "search_s": p_search_s, "build_launches": p_build_l,
             "search_launches": p_search_l, "recall_at_10": p_recall,
-            "recall_at_10_cpu": p_recall_cpu, "ids_equal_cpu": p_same, "flips": flips,
+            "recall_at_10_cpu": p_recall_cpu, "ids_equal_cpu": p_same,
+            "cpu_repeat_identical": cpu_repeat, "flips": flips,
             f"cascade_{kind}_{rm}": entry}
         del cpu_p, p_full
         torch.cuda.empty_cache()
@@ -907,6 +991,39 @@ def main() -> int:
         expect(0.0 <= f_recall <= 1.0, f"fig3/{name}: recall out of range")
         report["fig3"][name] = {"recall_at_10": f_recall, "compression": comp}
     del fig3, f_x
+
+    # ---- 4e. a corpus wider than one block's butterfly -------------------------
+    # d' = 65536 takes the two-pass butterfly: build and search on the card
+    # against the port's plain path on the CPU over the same corpus.
+    w_corpus = embedding_corpus(SEED + 3, WIDE_N, WIDE_DIM)
+    w_queries = queries_from_corpus(w_corpus, SEED + 4, 64)
+    reset_counts()
+    w_idx = MonaVec.build(w_corpus, metric="cosine")
+    w_scores, w_ids = w_idx.search(w_queries, k=10)
+    w_launches = read_counts()
+    w_cpu = MonaVec.build(w_corpus, metric="cosine", device="cpu")
+    cw_scores, cw_ids = w_cpu.search(w_queries, k=10)
+    w_enc = w_idx.backend.enc
+    delta = (qz.unpack_4bit(w_enc.packed).int()
+             - qz.unpack_4bit(w_cpu.backend.enc.packed).to(dev).int()).abs()
+    w_flips = {"flips": int((delta > 0).sum()), "max_level_delta": int(delta.max()),
+               "codes": delta.numel()}
+    w_same = float(np.mean(cw_ids == w_ids))
+    say(f"wide: {WIDE_N}x{WIDE_DIM} (d'={w_enc.dim_pad}) launches {w_launches}; card encode "
+        f"vs CPU encode {json.dumps(w_flips)}; search ids equal to the CPU plain path in "
+        f"{w_same:.4%} of slots, max|score diff| "
+        f"{float(np.max(np.abs(cw_scores - w_scores))):.3e}")
+    expect(w_enc.dim_pad == 65536 and w_launches["fwht"] >= 2 and w_launches["nibble_dot"] > 0,
+           "wide: the card path did not run the butterfly and the scan at d'=65536")
+    expect(w_scores.shape == (64, 10) and np.isfinite(w_scores).all()
+           and bool((w_ids < WIDE_N).all()), "wide: scores or ids out of contract")
+    expect(w_flips["flips"] <= 1e-4 * w_flips["codes"] and w_flips["max_level_delta"] <= 1,
+           "wide: the card encode flips more than 1e-4 of codes or by more than one level")
+    expect(w_same >= 0.99, "wide: ids differ from the CPU plain path in over 1% of slots")
+    report["wide"] = {"rows": WIDE_N, "dim": WIDE_DIM, "dim_pad": w_enc.dim_pad,
+                      "launches": w_launches, "flips": w_flips, "ids_equal_cpu": w_same}
+    del w_corpus, w_idx, w_cpu, delta
+    torch.cuda.empty_cache()
 
     # ---- 5. timing -----------------------------------------------------------
     # The 23 MB corpus stays in the 50 MB L2 between launches, as it does
@@ -992,16 +1109,17 @@ def main() -> int:
                 f"device {p1[2]:.4f} / {again[2]:.4f} / {p2[2]:.4f} ms; same bytes {same}")
         return entries, text, same
 
-    def time_scan(label: str, run, plain, library, nbytes: float, ops: float) -> dict:
-        """A full scan and its one-call yardstick, each timed three ways,
-        its plain version, its bound, and with --parent-csrc the parent's
-        kernel in turns."""
+    def time_kernel(label: str, run, plain, library, nbytes: float, ops: float,
+                    ops_per_s: float = PEAK_F32_OPS_PER_S, plain_iters: int = 20) -> dict:
+        """A kernel and its one-call yardstick, each timed three ways, its
+        plain version, its bound, and with --parent-csrc the parent's kernel
+        in turns."""
         t, t_b2b, t_dev = three_ways(run)
         l, l_b2b, l_dev = three_ways(library)
         e = {"kernel": t, "b2b": t_b2b, "device_ms": t_dev,
-             "plain": time_ms(plain, iters=20),
+             "plain": time_ms(plain, iters=plain_iters, warmup=1),
              "library": l, "library_b2b": l_b2b, "library_device_ms": l_dev}
-        e["bound_ms"], e["bound_by"] = bound_ms(nbytes=nbytes, ops=ops)
+        e["bound_ms"], e["bound_by"] = bound_ms(nbytes=nbytes, ops=ops, ops_per_s=ops_per_s)
         line = (f"{label}: one launch {t['median']:.4f} ms, back-to-back "
                 f"{t_b2b['median']:.4f} ms, device {t_dev:.4f} ms ("
                 f"{e['bound_ms'] / t_dev:.1%} of the bound); yardstick {l['median']:.4f} / "
@@ -1021,7 +1139,7 @@ def main() -> int:
     b = 64
     q_rot = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), enc).contiguous()
     deq_f32 = qz.decode(enc)
-    scan_timing = time_scan(
+    scan_timing = time_kernel(
         "time nibble_dot", lambda: nibble_dot_cuda(enc.packed, q_rot),
         lambda: ref.nibble_dot_ref(enc.packed, q_rot), lambda: torch.matmul(q_rot, deq_f32.T),
         nbytes=enc.n * d_pad / 2 + 4 * b * d_pad + 4 * b * enc.n, ops=2.0 * b * enc.n * d_pad)
@@ -1047,25 +1165,39 @@ def main() -> int:
     x = standardize.prepare(torch.from_numpy(corpus).to(dev), "cosine").contiguous()
     signs = rhdh.rademacher_signs(enc.seed, d_pad, dev)
     h_dense = torch.tensor(rhdh.hadamard_matrix(d_pad), device=dev)
-    xs = (rhdh.pad_to_pow2(x, d_pad) * signs).contiguous()
-    t_fwht = time_ms(lambda: hadamard.fwht_cuda(x, signs, d_pad))
-    t_fwht_b2b = time_ms(lambda: hadamard.fwht_cuda(x, signs, d_pad), reps=B2B)
-    t_fwht_plain = time_ms(lambda: hadamard.signed_fwht_plain(x, signs, d_pad))
-    t_fwht_lib = time_ms(lambda: torch.matmul(xs, h_dense))
-    fwht_bound, fwht_by = bound_ms(
-        nbytes=4.0 * x.shape[0] * (x.shape[1] + d_pad) + 4 * d_pad,
-        ops=float(x.shape[0]) * d_pad * math.log2(d_pad))
-    # The butterfly also at the shape a search gives it: one batch of 64.
-    xq = standardize.prepare(torch.from_numpy(queries[:b]).to(dev), "cosine").contiguous()
-    xqs = (rhdh.pad_to_pow2(xq, d_pad) * signs).contiguous()
-    fwht_query = dict(zip(("kernel", "b2b", "device_ms"),
-                          three_ways(lambda: hadamard.fwht_cuda(xq, signs, d_pad))))
-    fwht_query.update(plain=time_ms(lambda: hadamard.signed_fwht_plain(xq, signs, d_pad)),
-                      library=time_ms(lambda: torch.matmul(xqs, h_dense)))
-    fwht_query["bound_ms"], fwht_query["bound_by"] = bound_ms(
-        nbytes=4.0 * b * (xq.shape[1] + d_pad) + 4 * d_pad, ops=float(b) * d_pad * math.log2(d_pad))
-    say(f"fwht at [{b}, {d_pad}] (a search): device {fwht_query['device_ms']:.4f} ms a launch")
-    del xs, h_dense, x, xq, xqs
+    # The butterfly at the build's [45000, 1024] and at a search's [64, 1024];
+    # yardstick one f32 matmul by the dense H of the signed, padded rows.
+    fwht_timing = {}
+    for key, rows in (("fwht", x), ("fwht_query", standardize.prepare(
+            torch.from_numpy(queries[:b]).to(dev), "cosine").contiguous())):
+        xs = (rhdh.pad_to_pow2(rows, d_pad) * signs).contiguous()
+        fwht_timing[key] = time_kernel(
+            f"time fwht_rows [{rows.shape[0]}, {d_pad}]",
+            lambda: hadamard.fwht_cuda(rows, signs, d_pad),
+            lambda: hadamard.signed_fwht_plain(rows, signs, d_pad),
+            lambda: torch.matmul(xs, h_dense),
+            nbytes=4.0 * rows.shape[0] * (rows.shape[1] + d_pad) + 4 * d_pad,
+            ops=float(rows.shape[0]) * d_pad * math.log2(d_pad))
+    # The two-pass form past one block's 32768 at the build's bytes:
+    # [703, 65536].  Its bound counts x read once and the output written
+    # once, as a single pass would; the two passes move the output twice more.
+    wide = torch.from_numpy(
+        rng.standard_normal((N * DIM // 65536, 65536), dtype=np.float32)).to(dev)
+    wide_signs = rhdh.rademacher_signs(enc.seed, 65536, dev)
+    two_pass = dict(zip(("kernel", "b2b", "device_ms"),
+                        three_ways(lambda: hadamard.fwht_cuda(wide, wide_signs, 65536))))
+    two_pass["bound_ms"], two_pass["bound_by"] = bound_ms(
+        nbytes=8.0 * wide.numel() + 4 * 65536, ops=16.0 * wide.numel())
+    t2_dev, t2_bound = two_pass["device_ms"], two_pass["bound_ms"]
+    say(f"time fwht_rows [{wide.shape[0]}, 65536] (two passes): one launch "
+        f"{two_pass['kernel']['median']:.4f} ms, back-to-back {two_pass['b2b']['median']:.4f} "
+        f"ms, device {t2_dev:.4f} ms ({t2_bound / t2_dev:.1%} of the bound {t2_bound:.4f} ms, "
+        f"{two_pass['bound_by']})")
+    del wide
+    t_fwht, t_fwht_plain, t_fwht_lib = (fwht_timing["fwht"][k]
+                                        for k in ("kernel", "plain", "library"))
+    fwht_bound, fwht_by = fwht_timing["fwht"]["bound_ms"], fwht_timing["fwht"]["bound_by"]
+    del xs, h_dense, x
 
     # The cascade's kernels.  Yardsticks, timed only: the proxies as one f32
     # matmul of the +-1 sign planes (= d' - 2 hamming) or of the crumb level
@@ -1087,8 +1219,8 @@ def main() -> int:
                    plain_iters: int) -> dict:
         fn, plain, _ = proxy_fns[kind]
         n_rows, d_p = codes.shape[0], d_pad
-        t = time_ms(lambda: fn(codes, qcodes))
-        t_b2b = time_ms(lambda: fn(codes, qcodes), reps=B2B)
+        run = lambda: fn(codes, qcodes)
+        t, t_b2b, t_dev = three_ways(run)
         tp = time_ms(lambda: plain(codes, qcodes), iters=plain_iters, warmup=1)
         pc, pq = yardstick_planes(kind, codes), yardstick_planes(kind, qcodes)
         lib_out = torch.matmul(pq, pc.T)
@@ -1103,17 +1235,25 @@ def main() -> int:
         # computes (2 b n d' operations) at the int8 tensor-core rate.
         bnd, by = bound_ms(nbytes=codes.numel() + qcodes.numel() + 4.0 * b_q * n_rows,
                            ops=2.0 * b_q * n_rows * d_p, ops_per_s=PEAK_INT8_OPS_PER_S)
-        # A design figure: the 32-bit popcounts this kernel issues (4 per word
-        # pair for crumb, plus its per-row and per-query plane counts) at the
-        # CUDA cores' __popc rate.
-        words = d_p // 32
-        pops = (b_q * n_rows * words if kind == "sign"
-                else 4 * b_q * n_rows * words + 2 * (n_rows + b_q) * words)
-        return {"kernel": t, "b2b": t_b2b, "plain": tp, "library": tl, "bound_ms": bnd,
-                "bound_by": by, "rows": n_rows, "popcounts": pops,
-                "popc_unit_ms": 1e3 * pops / PEAK_POPC_PER_S}
+        e = {"kernel": t, "b2b": t_b2b, "device_ms": t_dev, "plain": tp, "library": tl,
+             "bound_ms": bnd, "bound_by": by, "rows": n_rows}
+        line = (f"time {fn.__name__} n={n_rows}: one launch {t['median']:.4f} ms, "
+                f"back-to-back {t_b2b['median']:.4f} ms, device {t_dev:.4f} ms "
+                f"({bnd / t_dev:.1%} of the bound {bnd:.4f} ms, {by})")
+        if kind == "sign":
+            # A design figure of the sign kernel: its b n d'/32 popcounts
+            # at the CUDA cores' __popc rate.
+            e["popcounts"] = b_q * n_rows * (d_p // 32)
+            e["popc_unit_ms"] = 1e3 * e["popcounts"] / PEAK_POPC_PER_S
+        if parent_entries:
+            turns, text, same = parent_turns(run)
+            e.update(turns)
+            line += text
+            expect(same, f"{fn.__name__} n={n_rows}: the parent's kernel gave other bytes")
+        say(line)
+        return e
 
-    timing_new = {"fwht_query": fwht_query}
+    timing_new = {"fwht_query": fwht_timing["fwht_query"]}
     qcodes_main = {"sign": binary.query_sign_bits(q_rot),
                    "crumb": binary.query_crumb_planes(q_rot)}
     for kind in ("sign", "crumb"):
@@ -1132,7 +1272,7 @@ def main() -> int:
     enc2 = precision_idx["bits2"].backend.enc
     q_rot2 = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), enc2).contiguous()
     deq2 = qz.decode(enc2)
-    timing_new["crumb_scan"] = time_scan(
+    timing_new["crumb_scan"] = time_kernel(
         "time crumb_dot", lambda: crumb_dot_cuda(enc2.packed, q_rot2),
         lambda: ref.crumb_dot_ref(enc2.packed, q_rot2), lambda: torch.matmul(q_rot2, deq2.T),
         nbytes=enc2.n * d_pad / 4 + 4 * b * d_pad + 4 * b * enc2.n,
@@ -1207,7 +1347,7 @@ def main() -> int:
     encm = precision_idx["mixed"].backend.enc
     q_rotm = qz.encode_query(torch.from_numpy(queries[:b]).to(dev), encm).contiguous()
     deqm = qz.decode(encm)
-    timing_new["mixed_scan"] = time_scan(
+    timing_new["mixed_scan"] = time_kernel(
         "time mixed scan (two kernels + add)",
         lambda: ops.score_raw(encm.packed, q_rotm, bits=3, n4_dims=encm.n4_dims),
         lambda: ref.mixed_dot_ref(encm.packed, q_rotm, encm.n4_dims),
@@ -1218,8 +1358,7 @@ def main() -> int:
 
     timing_old = {
         "scan": scan_timing,
-        "fwht": {"kernel": t_fwht, "b2b": t_fwht_b2b, "plain": t_fwht_plain,
-                 "library": t_fwht_lib, "bound_ms": fwht_bound, "bound_by": fwht_by}}
+        "fwht": fwht_timing["fwht"]}
     for name, e in {**timing_old, **timing_new}.items():
         t = e["kernel"]
         popc = (f", __popc-unit figure {e['popc_unit_ms']:.4f} ms" if "popc_unit_ms" in e
@@ -1249,6 +1388,7 @@ def main() -> int:
         "search_qps": full_lat["qps"], "search_batch_ms_median": full_lat["median_ms"],
         "search_batch_ms_p90": full_lat["p90_ms"], "encode_rows_per_s": N / encode_s,
         **timing_new, "rescore_lone_candidate": lone_chain, "scan_tile_fill": tile_fill,
+        "fwht_two_pass": two_pass,
     }
     report["profile"] = {
         "search": profile_window(torch, lambda: [

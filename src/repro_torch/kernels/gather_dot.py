@@ -22,6 +22,9 @@ from . import cuda_build
 from .nibble_dot import CODES_PER_BYTE, _lut, row_stride
 
 
+#: Queries one launch takes: the C entry point's limit (the grid's y).
+MAX_QUERIES = 65535
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
@@ -65,15 +68,20 @@ def _gather(wrapper, fn_name: str, bits: int, packed: torch.Tensor, q_rot: torch
         raise ValueError(f"{name} takes contiguous candidates")
     code_stride, q_stride = row_stride(name, packed), row_stride(name, q_rot)
     (n, dk), (b, m) = p_shape, c_shape
-    if b > 65535:
-        raise ValueError(f"{name} takes at most 65535 queries, got {b}")
     out = q_rot.new_empty((b, m))
-    rc = _entry(fn_name)(packed.data_ptr(), code_stride, q_rot.data_ptr(), q_stride,
-                         cand.data_ptr(), _lut(index, bits).data_ptr(), out.data_ptr(), b, m,
-                         n, per * dk, index, torch._C._cuda_getCurrentRawStream(index))
-    if rc:
-        cuda_build.check(cuda_build.load("gather_dot"), "gather_dot", rc)
-    if b and m:
+    if not m:
+        return out
+    entry, lut = _entry(fn_name), _lut(index, bits).data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    # A launch takes at most MAX_QUERIES queries (its grid's y); a score
+    # depends only on its (query, row), so chunks give the same bytes.
+    for lo in range(0, b, MAX_QUERIES):
+        rows = min(MAX_QUERIES, b - lo)
+        rc = entry(packed.data_ptr(), code_stride, q_rot.data_ptr() + 4 * lo * q_stride,
+                   q_stride, cand.data_ptr() + 4 * lo * m, lut, out.data_ptr() + 4 * lo * m,
+                   rows, m, n, per * dk, index, stream)
+        if rc:
+            cuda_build.check(cuda_build.load("gather_dot"), "gather_dot", rc)
         wrapper.launches += 1
     return out
 

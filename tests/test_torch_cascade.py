@@ -195,6 +195,47 @@ def test_crumb_affinity_is_the_level_product():
     np.testing.assert_array_equal(got, level(q_codes) @ level(c_codes).T)
 
 
+def _crumb_levels(planes: np.ndarray) -> np.ndarray:
+    """[rows, 2 dkp] plane bytes (hi || lo) -> [rows, 8 dkp] int64 levels
+    4 hi + 2 lo - 3, bit j of byte k being dim 8k + j."""
+    h = planes.shape[1] // 2
+    bits = lambda p: np.unpackbits(p, axis=-1, bitorder="little").astype(np.int64)
+    return 4 * bits(planes[:, :h]) + 2 * bits(planes[:, h:]) - 3
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 37, 8), (7, 301, 16), (7, 129, 64), (1, 300, 1024),
+                                   (3, 55, 1024)])
+def test_crumb_level_product_equals_ref_and_reference(b, n, d):
+    """The affinity as the level product (decode the planes to levels, one
+    integer product) equals the port's plain version and the reference's
+    crumb_affinity_jnp bit for bit, and so does the card kernel's
+    arithmetic: the four AND+popcounts over planes zero-padded to its
+    32-byte chunks, plus 9 d' minus the rank-1 popcounts, with d' the
+    unpadded width (each padded dim would add 9 otherwise)."""
+    rng = np.random.RandomState(n + d)
+    codes = rng.randint(0, 256, size=(n, d // 4)).astype(np.uint8)
+    qcodes = rng.randint(0, 256, size=(b, d // 4)).astype(np.uint8)
+    lc, lq = _crumb_levels(codes), _crumb_levels(qcodes)
+    assert set(np.unique(lc)) <= {-3, -1, 1, 3}
+    want = lq @ lc.T
+    port = tref.crumb_affinity_ref(torch.from_numpy(codes), torch.from_numpy(qcodes)).numpy()
+    h = d // 8
+    ref = np.asarray(rbinary_dot.crumb_affinity_jnp(
+        jnp.asarray(codes[:, :h]), jnp.asarray(codes[:, h:]), jnp.asarray(qcodes[:, :h]),
+        jnp.asarray(qcodes[:, h:]), dim=d))
+    np.testing.assert_array_equal(port, want)
+    np.testing.assert_array_equal(ref, want)
+    pad = (-h) % 32
+    qh, ql, ch, cl = (np.pad(p, ((0, 0), (0, pad))) for p in
+                      (qcodes[:, :h], qcodes[:, h:], codes[:, :h], codes[:, h:]))
+    pc = lambda p: np.unpackbits(p, axis=-1).sum(axis=-1).astype(np.int64)
+    cross = lambda a, c: np.unpackbits(a[:, None, :] & c[None, :, :], axis=-1).sum(axis=-1)
+    kernel = (16 * cross(qh, ch) + 8 * cross(qh, cl) + 8 * cross(ql, ch) + 4 * cross(ql, cl)
+              - (12 * pc(qh) + 6 * pc(ql))[:, None] - (12 * pc(ch) + 6 * pc(cl))[None, :])
+    np.testing.assert_array_equal(kernel + 9 * d, want)
+    np.testing.assert_array_equal(kernel + 9 * 8 * (h + pad), want + 9 * 8 * pad)
+
+
 # ---------------------------------------------------------------------------
 # Gathered rescore: within the port's tolerance of the reference.
 # ---------------------------------------------------------------------------

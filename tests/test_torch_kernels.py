@@ -109,17 +109,25 @@ def test_scan_cpu_dispatch_is_the_plain_version_and_uncounted():
     assert tnibble.nibble_dot_cuda.launches == before
 
 
-@pytest.mark.parametrize("bad", ["cpu", "dtype", "d_pad", "signs"])
-def test_fwht_cuda_refuses_before_building(bad):
+@pytest.mark.parametrize("bad", ["cpu", "dtype", "d_pad", "signs", "cpu_at_d_pad_65536"])
+def test_fwht_cuda_refuses_before_building(bad, monkeypatch):
+    loads = []
+    monkeypatch.setattr(tcuda_build, "load", loads.append)
     x, signs, d_pad = torch.zeros(4, 100), torch.ones(128), 128
+    match = None
     if bad == "dtype":
         x = x.double()
     elif bad == "d_pad":
         d_pad = 96
     elif bad == "signs":
         signs = torch.ones(64)
-    with pytest.raises(ValueError):
+    elif bad == "cpu_at_d_pad_65536":
+        # Past one block's 32768: the shape checks pass it, so only the
+        # CPU tensor is refused.
+        x, signs, d_pad, match = torch.zeros(2, 40000), torch.ones(65536), 65536, "CUDA device"
+    with pytest.raises(ValueError, match=match):
         thadamard.fwht_cuda(x, signs, d_pad)
+    assert loads == []
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "shape"])

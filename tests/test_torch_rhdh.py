@@ -121,3 +121,62 @@ def test_rotation_preserves_norm_when_normalized():
     y = trhdh.rhdh_apply(torch.from_numpy(x), 3, normalized=True).numpy()
     np.testing.assert_allclose(np.linalg.norm(y, axis=1), np.linalg.norm(x, axis=1),
                                rtol=1e-5)
+
+
+def _stage_loop_f32(xs: np.ndarray) -> np.ndarray:
+    """The butterfly in numpy float32, stage s pairing (i, i + 2^s) -> (a + b, a - b)."""
+    y = xs.astype(np.float32).copy()
+    n, d_pad = y.shape
+    h = 1
+    while h < d_pad:
+        pairs = y.reshape(n, d_pad // (2 * h), 2, h)
+        a, b = pairs[:, :, 0].copy(), pairs[:, :, 1].copy()
+        pairs[:, :, 0], pairs[:, :, 1] = a + b, a - b
+        h *= 2
+    return y
+
+
+@pytest.mark.parametrize("n,d", [(9, 5), (9, 16), (5, 1000), (3, 4096), (2, 40000)])
+def test_butterfly_matches_plain_and_reference(n, d):
+    """The kernel's stage-order oracle against the Kronecker plain version,
+    the reference's jnp FWHT and its Pallas kernel in interpret mode, within
+    1e-5 |x|_1 + 1e-6 a row (another summation order), and bit for bit
+    against the same stage loop in numpy."""
+    rng = np.random.RandomState(d)
+    x = rng.randn(n, d).astype(np.float32)
+    d_pad = trhdh.next_pow2(d)
+    signs = trhdh.rademacher_signs(17, d_pad)
+    got = thadamard.signed_fwht_butterfly(torch.from_numpy(x), signs, d_pad).numpy()
+    xs = np.pad(x * signs.numpy()[:d], ((0, 0), (0, d_pad - d)))
+    tol = _l1_tol(xs)
+    plain = thadamard.signed_fwht_plain(torch.from_numpy(x), signs, d_pad).numpy()
+    want = np.asarray(rhdh.fwht(jnp.asarray(xs)))
+    kernel = np.asarray(jhadamard.fwht_pallas(jnp.asarray(xs), block_rows=8, interpret=True))
+    assert got.shape == (n, d_pad)
+    for other in (plain, want, kernel):
+        assert np.all(np.abs(got - other) <= tol)
+    np.testing.assert_array_equal(got.view(np.uint32), _stage_loop_f32(xs).view(np.uint32))
+
+
+def test_butterfly_pads_with_positive_zero():
+    """The pad is +0.0, as the kernel loads it, not 0 * sign (-0.0 under a
+    negative sign): on a zero row the two give other signed zeros."""
+    x, signs = torch.zeros(1, 3), -torch.ones(8)
+    got = thadamard.signed_fwht_butterfly(x, signs, 8).numpy().view(np.uint32)
+    plus_pad = _stage_loop_f32(np.pad((x * signs[:3]).numpy(), ((0, 0), (0, 5))))
+    signed_pad = _stage_loop_f32((torch.nn.functional.pad(x, (0, 5)) * signs).numpy())
+    np.testing.assert_array_equal(got, plus_pad.view(np.uint32))
+    assert not np.array_equal(got, signed_pad.view(np.uint32))
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+def test_rhdh_apply_matches_reference_at_large_d_pad(normalized):
+    """d' = 65536, past the single-block limit of the card's kernel: the
+    port's CPU path still takes it, as the reference does."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(3, 40000).astype(np.float32)
+    with port_stream(reference_stream()):
+        got = trhdh.rhdh_apply(torch.from_numpy(x), 99, normalized=normalized).numpy()
+    want = np.asarray(rhdh.rhdh_apply(jnp.asarray(x), 99, normalized=normalized))
+    assert got.shape == want.shape == (3, 65536)
+    assert np.all(np.abs(got - want) <= _l1_tol(x))
