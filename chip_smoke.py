@@ -15,7 +15,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
    2^21} and at the main shape, the 4-bit scan at b in {1, 7, 64} x
    n in {1, 300, n} (d'=1024), at d'=16, and at n=1,000,000; the sign and
    crumb proxies bit for bit at the same b x n grid, at d' in {8, 16, 136,
-   4096}, at odd n, at b=65 and at n=1,000,000; the 2-bit scan at the same
+   4096}, at odd n, at b=65, at n in {127, 129, 255, 257} (row tiles ragged
+   on either side) and at n=1,000,000, and each at b = 64 x 65,535 + 1 (two
+   launches) byte-equal to its two halves; the 2-bit scan at the same
    b x n grid, at d'=16 and at
    n=1,000,000; the gathered 4-bit and 2-bit rescores at b in {1, 7, 64} x
    m in {1, 33, 80, 320, 1280} (d'=1024) and at d' in {16, 4096}, with
@@ -61,8 +63,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
    with CUDA events (medians of one launch per sample; each kernel also as
    the mean of 10 back-to-back launches per sample), beside the bound the
    card could reach (the proxies also at n=1,000,000; the butterfly and the
-   proxies also as device time, and with ``--parent-csrc`` in turns with the
-   parent's kernels); the 4-bit and 2-bit
+   proxies, and the proxies' yardstick, also as device time, and with
+   ``--parent-csrc`` in turns with the parent's kernels); the 4-bit and 2-bit
    full scans (the 2-bit one on the phase-4c 2-bit index) and the mixed
    scan pair also as device time (CUDA events around back-to-back calls
    queued behind a spin kernel), beside their
@@ -104,12 +106,9 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12
-# 32-bit popcounts on the CUDA cores: 16 per clock per SM on compute
-# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-# throughput), 132 SMs, 1.98 GHz.  A design figure of the sign kernel,
-# not its bound: the card does the same work faster as int8 products.
+# The H100 SXM's boost clock: sizes the spin kernel of `device_ms` and the
+# rescores' chain floor below.
 SM_CLOCK_HZ = 1.98e9
-PEAK_POPC_PER_S = 132 * 16 * SM_CLOCK_HZ
 # A dependent f32 FMA issues 4 cycles after the one it waits on.  The
 # gathered rescores keep one accumulator per score, so d' FMAs in a row
 # bound them from below: a design figure, not the bound.
@@ -439,7 +438,31 @@ def main() -> int:
         for d_pad in (8, 16, 136, 4096):
             check_proxy(kind, 7, 301, d_pad)
         check_proxy(kind, 65, 301, 1024)
+        # Row tiles (128 crumb, 256 sign rows) that end ragged on either side.
+        for n in (127, 129, 255, 257):
+            check_proxy(kind, 64, n, 1024)
+            check_proxy(kind, 65, n, 136)
         check_proxy(kind, 64, BIG_N, 1024)
+    torch.cuda.empty_cache()
+    # More queries than one launch takes (65,535 blocks of 64 on its grid's
+    # y): the wrapper launches twice, and the result is its two halves'.
+    for kind, (fn, plain, dims_per_byte) in proxy_fns.items():
+        b_big, half = binary_dot.MAX_QUERIES + 1, binary_dot.MAX_QUERIES
+        codes = torch.from_numpy(rng.integers(0, 256, size=(8, 8 // dims_per_byte),
+                                              dtype=np.uint8)).to(dev)
+        qcodes = torch.from_numpy(rng.integers(0, 256, size=(b_big, 8 // dims_per_byte),
+                                               dtype=np.uint8)).to(dev)
+        before = fn.launches
+        whole = fn(codes, qcodes)
+        launched = fn.launches - before
+        halves = torch.cat([fn(codes, qcodes[:half]), fn(codes, qcodes[half:])])
+        same = same_bytes(whole, halves)
+        exact = bool(torch.equal(whole, plain(codes, qcodes)))
+        say(f"{fn.__name__} at b={b_big} n=8 d'=8: {launched} launches, byte-equal to its "
+            f"two halves: {same}, to its plain version: {exact}")
+        expect(same and exact and launched == 2,
+               f"{fn.__name__} at b={b_big} is not its two halves or its plain version")
+        del codes, qcodes, whole, halves
     torch.cuda.empty_cache()
 
     # 2-bit codes and mixed [4-bit | 2-bit] rows.  The tolerance rule is the
@@ -1227,7 +1250,7 @@ def main() -> int:
         want = fn(codes, qcodes)
         same = bool(torch.equal(lib_out, (d_p - 2 * want if kind == "sign" else want).float()))
         expect(same, f"the {kind} yardstick does not compute the {kind} proxy")
-        tl = time_ms(lambda: torch.matmul(pq, pc.T))
+        tl, tl_b2b, tl_dev = three_ways(lambda: torch.matmul(pq, pc.T))
         del pc, pq, lib_out
         b_q = qcodes.shape[0]
         # The bound: the codes, the query codes and the int32 output once,
@@ -1236,15 +1259,12 @@ def main() -> int:
         bnd, by = bound_ms(nbytes=codes.numel() + qcodes.numel() + 4.0 * b_q * n_rows,
                            ops=2.0 * b_q * n_rows * d_p, ops_per_s=PEAK_INT8_OPS_PER_S)
         e = {"kernel": t, "b2b": t_b2b, "device_ms": t_dev, "plain": tp, "library": tl,
-             "bound_ms": bnd, "bound_by": by, "rows": n_rows}
+             "library_b2b": tl_b2b, "library_device_ms": tl_dev, "bound_ms": bnd,
+             "bound_by": by, "rows": n_rows}
         line = (f"time {fn.__name__} n={n_rows}: one launch {t['median']:.4f} ms, "
                 f"back-to-back {t_b2b['median']:.4f} ms, device {t_dev:.4f} ms "
-                f"({bnd / t_dev:.1%} of the bound {bnd:.4f} ms, {by})")
-        if kind == "sign":
-            # A design figure of the sign kernel: its b n d'/32 popcounts
-            # at the CUDA cores' __popc rate.
-            e["popcounts"] = b_q * n_rows * (d_p // 32)
-            e["popc_unit_ms"] = 1e3 * e["popcounts"] / PEAK_POPC_PER_S
+                f"({bnd / t_dev:.1%} of the bound {bnd:.4f} ms, {by}); yardstick "
+                f"{tl['median']:.4f} / {tl_b2b['median']:.4f} / {tl_dev:.4f} ms")
         if parent_entries:
             turns, text, same = parent_turns(run)
             e.update(turns)
@@ -1361,13 +1381,11 @@ def main() -> int:
         "fwht": fwht_timing["fwht"]}
     for name, e in {**timing_old, **timing_new}.items():
         t = e["kernel"]
-        popc = (f", __popc-unit figure {e['popc_unit_ms']:.4f} ms" if "popc_unit_ms" in e
-                else "")
         say(f"time {name}: kernel {t['median']:.4f} ms (p{round(100 * t['p'])} "
             f"{t['p_ms']:.4f}, {t['samples']} samples of one launch), back-to-back "
             f"{e['b2b']['median']:.4f} ms ({B2B} launches a sample), plain "
             f"{e['plain']['median']:.4f} ms, library {e['library']['median']:.4f} ms, "
-            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}){popc}")
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
 
     # End to end: search rate over timed batches of 64, and the encode rate.
     full_lat = batch_latencies(lambda qb: idx.search(qb, k=10), queries, 100)

@@ -6,12 +6,14 @@ Counterpart of ``repro/kernels/binary_dot.py``.  Both return int32 [b, n]:
   (``sign_hamming_raw``);
 * ``crumb_affinity_cuda``: the crumb affinity ``sum_i L(q_i) L(c_i)`` with
   ``L(c) = 2c - 3``, i.e. the four weighted AND+popcount terms of
-  ``crumb_affinity_raw`` plus the rank-1 terms of ``_crumb_corrections``;
-  the kernel runs the AND+popcounts of the bit planes on the tensor cores.
+  ``crumb_affinity_raw`` plus the rank-1 terms of ``_crumb_corrections``.
   Codes and queries carry the hi bit plane then the lo bit plane
   (``core.binary``).
 
-Both kernels are ``csrc/binary_dot.cu``; their plain versions are
+Both kernels are one template in ``csrc/binary_dot.cu`` that runs the
+AND+popcounts of the bit planes on the tensor cores (the Hamming distance
+as ``pc(q) + pc(c) - 2 pc(q AND c)``); the wrappers launch it over chunks of
+at most ``MAX_QUERIES`` queries.  Their plain versions are
 ``kernels.ref.sign_hamming_ref`` and ``kernels.ref.crumb_affinity_ref``, and
 ``kernels.ops`` picks between them by device.
 """
@@ -23,6 +25,10 @@ import ctypes
 import torch
 
 from . import cuda_build
+
+#: Queries one launch takes: the C entry points' limit (65,535 blocks of 64
+#: queries on the grid's y).
+MAX_QUERIES = 64 * 65535
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ENTRY: dict = {}
@@ -43,8 +49,8 @@ def _entry(fn_name: str):
 
 def _launch(wrapper, fn_name: str, codes: torch.Tensor, qcodes: torch.Tensor,
             plane_bytes: int) -> torch.Tensor:
-    """Check the operands, run C entry point ``fn_name`` and count the launch
-    on ``wrapper``."""
+    """Check the operands, run C entry point ``fn_name`` over chunks of
+    queries and count each launch on ``wrapper``."""
     name = wrapper.__name__
     index = codes.get_device()
     if not (codes.is_cuda and qcodes.get_device() == index):
@@ -59,13 +65,19 @@ def _launch(wrapper, fn_name: str, codes: torch.Tensor, qcodes: torch.Tensor,
         raise ValueError(f"{name} takes contiguous tensors")
     if codes.data_ptr() % 16 or qcodes.data_ptr() % 16:
         raise ValueError(f"{name} needs 16-byte aligned tensors")
-    (n, _), b = codes.shape, qcodes.shape[0]
+    (n, width), b = codes.shape, qcodes.shape[0]
     out = torch.empty((b, n), dtype=torch.int32, device=codes.device)
-    rc = _entry(fn_name)(codes.data_ptr(), qcodes.data_ptr(), out.data_ptr(), b, n,
-                         plane_bytes, index, torch._C._cuda_getCurrentRawStream(index))
-    if rc:
-        cuda_build.check(cuda_build.load("binary_dot"), "binary_dot", rc)
-    if b and n:
+    if not (b and n):
+        return out
+    entry, stream = _entry(fn_name), torch._C._cuda_getCurrentRawStream(index)
+    # A launch takes at most MAX_QUERIES queries (its grid's y); a proxy
+    # depends only on its (query, row), so chunks give the same bytes.
+    for lo in range(0, b, MAX_QUERIES):
+        rc = entry(codes.data_ptr(), qcodes.data_ptr() + lo * width,
+                   out.data_ptr() + 4 * lo * n, min(MAX_QUERIES, b - lo), n, plane_bytes,
+                   index, stream)
+        if rc:
+            cuda_build.check(cuda_build.load("binary_dot"), "binary_dot", rc)
         wrapper.launches += 1
     return out
 

@@ -236,6 +236,33 @@ def test_crumb_level_product_equals_ref_and_reference(b, n, d):
     np.testing.assert_array_equal(kernel + 9 * 8 * (h + pad), want + 9 * 8 * pad)
 
 
+
+@pytest.mark.parametrize("b,n,d", [(1, 37, 8), (7, 301, 16), (7, 129, 136), (1, 300, 1024),
+                                   (3, 55, 4096)])
+def test_sign_and_popc_form_equals_ref_and_reference(b, n, d):
+    """The card kernel's arithmetic for the Hamming distance: the sign bytes
+    zero-padded to its 32-byte (256-dim) chunks, then pc(q) + pc(c) minus
+    twice the sum over chunks of pc(q AND c), equals the port's plain
+    version, the reference's sign_hamming_jnp and its interpret-mode
+    kernel bit for bit."""
+    rng = np.random.RandomState(n + d)
+    codes = rng.randint(0, 256, size=(n, d // 8)).astype(np.uint8)
+    qcodes = rng.randint(0, 256, size=(b, d // 8)).astype(np.uint8)
+    pad = (-(d // 8)) % 32
+    qp, cp = (np.pad(p, ((0, 0), (0, pad))) for p in (qcodes, codes))
+    pc = lambda p: np.unpackbits(p, axis=-1).sum(axis=-1).astype(np.int64)
+    cross = sum(np.unpackbits(qp[:, None, k:k + 32] & cp[None, :, k:k + 32], axis=-1).sum(axis=-1)
+                for k in range(0, qp.shape[1], 32))
+    kernel = pc(qp)[:, None] + pc(cp)[None, :] - 2 * cross
+    port = tref.sign_hamming_ref(torch.from_numpy(codes), torch.from_numpy(qcodes))
+    ref = rbinary_dot.sign_hamming_jnp(jnp.asarray(codes), jnp.asarray(qcodes))
+    kern = rops.sign_coarse_raw(jnp.asarray(codes), jnp.asarray(qcodes), use_kernel=True,
+                                interpret=True)
+    assert port.dtype == torch.int32 and port.shape == (b, n)
+    np.testing.assert_array_equal(port.numpy(), kernel)
+    np.testing.assert_array_equal(np.asarray(ref), kernel)
+    np.testing.assert_array_equal(np.asarray(kern), kernel)
+
 # ---------------------------------------------------------------------------
 # Gathered rescore: within the port's tolerance of the reference.
 # ---------------------------------------------------------------------------
