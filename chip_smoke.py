@@ -78,9 +78,34 @@ Phases, in order (any failure exits non-zero and prints no result line):
    latency beside the full scan, the same for the 2-bit, mixed and v7 full
    scans and their cascades, and at n=1,000,000 (random codes) the batch
    latency of the 4-bit full scan and of each cascade, and of the 2-bit
-   full scan; a torch.profiler breakdown of the search, cascade, build and
-   2-bit and mixed windows (device time by kernel, idle share).
+   full scan; a torch.profiler breakdown of the build and of the eager
+   stages of the search, cascade, 2-bit and mixed windows (device time by
+   kernel), and each path's graph replay timed by CUDA events (its idle
+   share); torch.profiler traces no graph replay, since CUPTI crashed the
+   process in one;
+6. the engine: every search above ran as a replay of the plan's captured
+   CUDA graph.  On every path of phases 4-4e (full scans and cascades, and
+   the d=40,000 full scan) the replay is held byte for byte against the
+   plan's stages run eagerly at the same bucket, and for b in
+   ``ENGINE_BATCHES`` each result against the rows of its full bucket's
+   batch and the eager stages on the raw b; on a fresh handle of the index,
+   ``searcher(k=10).warmup(64)`` must capture once and the next 10
+   searches mint no plan or graph while the launch counters grow by the
+   graph's tally each replay; graph and eager batch latency in turns
+   (graph, eager, graph, eager) with each one's idle share, at
+   45,000 and at 1,000,000 rows; ``torch.cuda.memory_reserved()`` after;
+6b. the segmented lifecycle on the card over the phase-4 corpus: add two
+   batches of the stand-in, delete ids over all three segments, search the
+   full scan and the sign cascade against exact cosine over the live rows
+   and the port's plain path on the CPU over the same segments (no
+   tombstoned id, every cascade score the full scan's), save v8 and v10,
+   reload and search byte-identical, compact into v6, and replay the op
+   sequence from a fresh build to equal file hashes; the mutated index's
+   full scan and sign cascade pass phase 6's graph and bucketing checks;
+   a loop of add + search keeps one graph per plan key and returns the old
+   segment set's graph memory.
 
+Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -90,6 +115,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
+import faulthandler
+import hashlib
 import json
 import math
 import subprocess
@@ -97,6 +125,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -124,6 +153,11 @@ BIG_BATCHES = 20   # timed query batches of 64 at n=1,000,000
 PERM_SAMPLE = 512  # rotated rows the v7 permutation is taken from (paper_tables.py)
 PRECISIONS = ("bits2", "mixed", "v7")   # phase 4c's indexes
 CPU_CASCADE_BATCHES = 2   # batches of the CPU plain crumb cascade in phase 4c
+ENGINE_BATCHES = (1, 5, 8, 13, 64, 100)   # phase 6's batch sizes (buckets 8 to 128)
+LIFECYCLE_ADD = (2500, 2500)   # phase 6b: rows of the stand-in added, in two batches
+LIFECYCLE_DELETE = 1000        # phase 6b: ids deleted over all three segments
+ADD_LOOP = (5, 500)            # phase 6b: rounds of add + search, rows added a round
+ADD_LOOP_SLACK = 64 << 20      # phase 6b: reserved bytes the loop may grow past its codes
 WIDE_N, WIDE_DIM = 2000, 40000   # phase 4e: d' = 65536, past one block's butterfly
 
 FAILURES: list = []
@@ -148,7 +182,9 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S) -
 
 def batch_latencies(search, queries, batches: int) -> dict:
     """Closed-loop host-clock latency of ``batches`` searches of 64 (each
-    returns numpy on the host, so each ends with the device done)."""
+    returns numpy on the host, so each ends with the device done), after
+    one untimed search that captures the plan's graph if it has none."""
+    search(queries[:64])
     lat = []
     for i in range(batches):
         j = i % (len(queries) // 64)
@@ -164,7 +200,10 @@ def profile_window(torch, fn, label: str, top: int = 10) -> dict:
     """Device activity (kernels and copies) over one call of ``fn`` after a
     warm-up call, traced with torch.profiler: time by name, and the busy
     time as the union of the activity intervals over the traced window's
-    wall time."""
+    wall time.  ``fn`` must replay no CUDA graph: with torch 2.11 / CUDA
+    12.8, a graph replayed under the profiler's CUPTI tracing crashed the
+    process (SIGSEGV in ``CUDAGraph.replay``), so graph paths are traced
+    through their eager stages and timed by ``graph_device_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -196,6 +235,222 @@ def profile_window(torch, fn, label: str, top: int = 10) -> dict:
     return out
 
 
+def graph_device_ms(torch, index, kw: dict, qs, replays: int = 10) -> float:
+    """Device time of one replay of the graph that a search of 64 at k=10
+    with ``kw`` runs on ``index``: CUDA events around ``replays``
+    back-to-back replays of that graph, captured on a fresh handle of the
+    same tensors (the stages, copies and host work outside the graph are
+    not in it)."""
+    from repro_torch import MonaVec
+
+    fresh = MonaVec(dataclasses.replace(index.backend), index.mut)
+    fresh.search(qs[:64], k=10, **kw)
+    (graph,) = fresh.backend.graphs.values()
+    graph.graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def same_result(a, b) -> bool:
+    return a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes()
+
+
+def search_eager(index, qb, bucketed: bool = True, **kw):
+    """``index``'s plan for a search of ``qb`` at k=10 with its stages run
+    eagerly, no graph: in ``qb``'s bucket, or at the raw batch."""
+    from repro_torch import engine
+
+    return engine.search_eager(index.backend, None if index.mut.is_static else index.mut,
+                               qb, 10, bucketed=bucketed, **kw)
+
+
+def engine_checks(label: str, index, kw: dict, qs) -> dict:
+    """Graph against eager at the bucket, and bucketing: for b in
+    ENGINE_BATCHES each result equals the rows of its full bucket's batch
+    and the plan's eager stages on the raw b, byte for byte."""
+    from repro_torch import engine
+
+    g = index.search(qs[:64], k=10, **kw)
+    as_eager = same_result(g, search_eager(index, qs[:64], **kw))
+    prefix_ok, raw_ok = [], []
+    for b in ENGINE_BATCHES:
+        got = index.search(qs[:b], k=10, **kw)
+        full = index.search(qs[:engine.shape_bucket(b)], k=10, **kw)
+        prefix_ok.append(same_result(got, (full[0][:b], full[1][:b])))
+        raw_ok.append(same_result(got, search_eager(index, qs[:b], False, **kw)))
+    say(f"engine {label}: graph = eager stages at b=64 {as_eager}; b in {ENGINE_BATCHES}: "
+        f"= full-bucket rows {prefix_ok}, = eager raw b {raw_ok}")
+    expect(as_eager, f"engine {label}: the graph replay differs from the eager stages")
+    expect(all(prefix_ok), f"engine {label}: a bucketed batch differs from its bucket's rows")
+    expect(all(raw_ok), f"engine {label}: a bucketed batch differs from the eager raw b")
+    return {"graph_equals_eager": as_eager, "prefix": prefix_ok, "raw_b": raw_ok}
+
+
+def lifecycle_phase(torch, np, dev, corpus, queries, say, expect) -> dict:
+    """Phase 6b: the segmented lifecycle on the card over the phase-4 corpus.
+
+    Two replays of one op sequence from a fresh build (add two batches,
+    delete ids over all three segments, save v8, enable the sign code, save
+    v10, load the v8 file and compact it, save v6) must save files of equal
+    hashes; the first replay's index is searched (full scan and sign
+    cascade) against exact cosine over the live rows and the port's plain
+    path on the CPU over the same segments, and its files reloaded."""
+    from repro_torch import MonaVec
+    from repro_torch.core import quantize as qz, scoring
+    from repro_torch.core.convert import segmented_from_arrays
+    from repro_torch.data.synthetic import embedding_corpus
+    from repro_torch.kernels import ops
+
+    added = embedding_corpus(SEED + 5, sum(LIFECYCLE_ADD), DIM)
+    rm = max(RESCORE_MULTS)
+    out: dict = {}
+
+    def replay(td: Path, tag: str):
+        index = MonaVec.build(corpus, metric="cosine")
+        lo = 0
+        for n in LIFECYCLE_ADD:
+            index.add(added[lo: lo + n])
+            lo += n
+        base_n, ids = index.backend.enc.n, index.ids
+        seg1, seg2 = ids[base_n: base_n + LIFECYCLE_ADD[0]], ids[base_n + LIFECYCLE_ADD[0]:]
+        dead = np.concatenate([ids[:base_n][::base_n // 600][:600], seg1[::10][:200],
+                               seg2[::10][:200]])
+        n_dead = index.delete(dead)
+        files = {}
+        files[8] = td / f"{tag}-v8.mvec"
+        index.save(str(files[8]))
+        index.enable_coarse("sign")
+        files[10] = td / f"{tag}-v10.mvec"
+        index.save(str(files[10]))
+        comp = MonaVec.load(str(files[8]))
+        reclaimed = comp.compact()
+        files[6] = td / f"{tag}-compact.mvec"
+        comp.save(str(files[6]))
+        digests = {v: hashlib.sha256(f.read_bytes()).hexdigest() for v, f in files.items()}
+        versions = {v: f.read_bytes()[4] for v, f in files.items()}
+        return index, comp, dead, n_dead, reclaimed, files, digests, versions
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tdir:
+        td = Path(tdir)
+        index, comp, dead, n_dead, reclaimed, files, digests, versions = replay(td, "a")
+        again = replay(td, "b")
+        same_files = again[6] == digests
+        say(f"lifecycle: n_total {index.n_total}, n_live {index.n_live}, deleted {n_dead}, "
+            f"{len(index.mut.extras)} extra segments; file versions {versions}; compact "
+            f"reclaimed {reclaimed}; replay from a fresh build gives equal sha256: {same_files}")
+        expect(n_dead == LIFECYCLE_DELETE and index.n_live == N + sum(LIFECYCLE_ADD) - n_dead,
+               "lifecycle: add/delete counts are off")
+        expect(versions == {8: 8, 10: 10, 6: 6}, f"lifecycle: saved versions {versions}")
+        expect(same_files, "lifecycle: replaying the op sequence gave other file bytes")
+        expect(reclaimed == LIFECYCLE_DELETE and comp.mut.is_static, "lifecycle: compact")
+        del again
+
+        qt = torch.from_numpy(queries).to(dev)
+        rows = torch.cat([torch.from_numpy(corpus), torch.from_numpy(added)]).to(dev)
+        exact_scores = scoring.score_f32(qt, rows, "cosine")
+        exact_scores[:, torch.from_numpy(dead.astype(np.int64)).to(dev)] = -float("inf")
+        exact = scoring.topk(exact_scores, 10)[1].cpu().numpy()   # row == id here
+        del rows, exact_scores
+
+        def recall_of(found):
+            return float(np.mean([len(set(a) & set(b)) / 10.0 for a, b in zip(found, exact)]))
+
+        segs = [(index.backend.enc, index.backend.ids, index.mut.base_tombs)] + [
+            (s.enc, s.ids, s.tombs) for s in index.mut.extras]
+        full_scores = torch.cat([torch.cat([
+            ops.score_packed(qz.encode_query(qt[64 * i: 64 * (i + 1)], e), e)
+            for e, _, _ in segs], dim=1) for i in range(BATCHES)])
+        cpu = segmented_from_arrays(
+            [{"packed": e.packed.cpu().numpy(), "qnorms": e.qnorms.cpu().numpy(),
+              "seed": e.seed, "ids": i, "tombs": t} for e, i, t in segs],
+            next_ordinal=index.mut.next_ordinal, metric="cosine", bits=4, dim=DIM,
+            dim_pad=index.backend.enc.dim_pad, coarse="sign", device="cpu")
+        loaded = {v: MonaVec.load(str(files[v])) for v in (8, 10)}
+        for label, kw in (("full", {}), (f"sign_{rm}", {"rescore_mult": rm})):
+            res = [index.search(queries[64 * i: 64 * (i + 1)], k=10, **kw)
+                   for i in range(BATCHES)]
+            s_card = np.concatenate([r[0] for r in res])
+            i_card = np.concatenate([r[1] for r in res])
+            s_cpu, i_cpu = cpu.search(queries, k=10, **kw)
+            no_dead = not np.isin(i_card, dead).any() and bool((i_card < index.n_total).all())
+            recall, recall_cpu = recall_of(i_card), recall_of(i_cpu)
+            same_ids = float(np.mean(i_cpu == i_card))
+            scores_equal = (full_scores.gather(1, torch.from_numpy(i_card.astype(np.int64))
+                                               .to(dev)).cpu().numpy().tobytes()
+                            == s_card.tobytes())
+            reload = {}
+            for v, li in loaded.items():
+                if kw and v == 8:
+                    continue
+                s3, i3 = li.search(queries[:64], k=10, **kw)
+                reload[v] = s3.tobytes() == res[0][0].tobytes() and \
+                    i3.tobytes() == res[0][1].tobytes()
+            say(f"lifecycle {label}: recall@10 {recall:.4f} vs exact over the live rows; CPU "
+                f"plain path over the same segments recall@10 {recall_cpu:.4f}, ids equal in "
+                f"{same_ids:.4%} of slots; no tombstoned id returned: {no_dead}; scores "
+                f"byte-equal to the full scan's: {scores_equal}; save -> load -> search "
+                f"byte-identical (by version): {reload}")
+            expect(no_dead, f"lifecycle {label}: a tombstoned or unknown id was returned")
+            expect(abs(recall - recall_cpu) <= 0.01, f"lifecycle {label}: recall vs the CPU")
+            expect(same_ids >= 0.99, f"lifecycle {label}: ids differ from the CPU in over 1%")
+            expect(scores_equal, f"lifecycle {label}: a score differs from the full scan's")
+            expect(all(reload.values()), f"lifecycle {label}: a file round trip differs")
+            out[label] = {"recall_at_10": recall, "recall_at_10_cpu": recall_cpu,
+                          "ids_equal_cpu": same_ids, "no_tombstoned_id": no_dead,
+                          "scores_equal_full_scan": scores_equal, "reload": reload}
+        # The mutated index through phase 6's checks: graph = eager stages,
+        # and every b equal to its bucket's rows and to the eager raw b.
+        for label, kw in (("full", {}), (f"sign_{rm}", {"rescore_mult": rm})):
+            out[f"engine_{label}"] = engine_checks(f"mutated {label}", index, kw, queries)
+
+        c_ids = np.concatenate([comp.search(queries[64 * i: 64 * (i + 1)], k=10)[1]
+                                for i in range(BATCHES)])
+        c_recall = recall_of(c_ids)
+        say(f"lifecycle compacted: {comp.n_total} rows in one segment, recall@10 "
+            f"{c_recall:.4f}, no tombstoned id returned: {not np.isin(c_ids, dead).any()}")
+        expect(not np.isin(c_ids, dead).any(), "lifecycle: the compacted index returned a "
+                                               "deleted id")
+        out.update(n_total=index.n_total, n_live=index.n_live, deleted=n_dead,
+                   versions=versions, sha256=digests, replay_equal=same_files,
+                   compact={"reclaimed": reclaimed, "recall_at_10": c_recall})
+
+        # A serving loop of add() then search (full scan and sign cascade):
+        # the index keeps one graph per plan key, over its current segments,
+        # and the old segment set's graphs give their memory back.
+        rounds, per_round = ADD_LOOP
+        more = embedding_corpus(SEED + 6, rounds * per_round, DIM)
+        stored, reserved = [], []
+        for r in range(rounds):
+            index.add(more[r * per_round: (r + 1) * per_round])
+            for kw in ({}, {"rescore_mult": rm}):
+                index.search(queries[:64], k=10, **kw)
+            stored.append(len(index.backend.graphs))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved())
+        codes = (rounds - 1) * per_round * (index.backend.enc.packed.shape[1] + 4
+                                            + index.backend.enc.ccodes.shape[1])
+        grown = reserved[-1] - reserved[0]
+        say(f"lifecycle add loop: {rounds} rounds of add({per_round}) + full and sign_{rm} "
+            f"searches: graphs held {stored}; memory_reserved {[x >> 20 for x in reserved]} "
+            f"MiB, grown {grown / 2**20:.1f} MiB past the first round (codes added after it "
+            f"{codes / 2**20:.1f} MiB)")
+        expect(stored == [2] * rounds, "lifecycle add loop: the index kept graphs of an "
+                                       "older segment set")
+        expect(grown <= codes + ADD_LOOP_SLACK, "lifecycle add loop: card memory grew past "
+                                                "the codes added")
+        out["add_loop"] = {"graphs_held": stored, "reserved_bytes": reserved,
+                           "codes_bytes": codes}
+        del index, comp, loaded, cpu, full_scores
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
@@ -205,6 +460,7 @@ def main() -> int:
                          "butterfly and the proxies byte for byte against them and time the "
                          "kernels in turns with these")
     args = ap.parse_args()
+    faulthandler.enable()     # a crash in native code names its Python line
 
     import torch
 
@@ -215,7 +471,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from repro_torch import MonaVec
+    from repro_torch import MonaVec, engine, obs
     from repro_torch.core import binary, lloydmax, quantize as qz, rhdh, scoring, standardize
     from repro_torch.core.bruteforce import BruteForceIndex
     from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
@@ -1045,7 +1301,7 @@ def main() -> int:
     expect(w_same >= 0.99, "wide: ids differ from the CPU plain path in over 1% of slots")
     report["wide"] = {"rows": WIDE_N, "dim": WIDE_DIM, "dim_pad": w_enc.dim_pad,
                       "launches": w_launches, "flips": w_flips, "ids_equal_cpu": w_same}
-    del w_corpus, w_idx, w_cpu, delta
+    del w_corpus, w_cpu, delta     # w_idx stays for phase 6's bucketing checks
     torch.cuda.empty_cache()
 
     # ---- 5. timing -----------------------------------------------------------
@@ -1408,24 +1664,34 @@ def main() -> int:
         **timing_new, "rescore_lone_candidate": lone_chain, "scan_tile_fill": tile_fill,
         "fwht_two_pass": two_pass,
     }
+    # Searches replay CUDA graphs, which the profiler must not trace: its
+    # breakdown is of the same plan's stages run eagerly (the same kernels,
+    # phase 6 holds their bytes equal), and the graph's own device time is
+    # taken by CUDA events (graph_device_ms).
     report["profile"] = {
         "search": profile_window(torch, lambda: [
-            idx.search(queries[64 * i: 64 * (i + 1)], k=10) for i in range(BATCHES)],
-            f"{BATCHES} searches of 64"),
+            search_eager(idx, queries[64 * i: 64 * (i + 1)]) for i in range(BATCHES)],
+            f"eager stages of {BATCHES} searches of 64"),
         "build": profile_window(torch, lambda: MonaVec.build(corpus, metric="cosine"),
                                 f"one build of {N}x{DIM}"),
     }
-    # An estimate, not a measurement: the traced device time per batch over
-    # the untraced median batch latency.
-    def idle_estimate(window: dict, latency: dict, label: str) -> None:
-        busy_per_batch_ms = window["device_busy_us"] / BATCHES / 1e3
-        idle_est = max(0.0, 1.0 - busy_per_batch_ms / latency["median_ms"])
+    # An estimate, not a measurement: the device time per batch (a graph
+    # replay's by events, or the traced eager stages') over the untraced
+    # median batch latency.
+    def idle_estimate(window: dict, latency: dict, label: str,
+                      device_ms: Optional[float] = None) -> None:
+        how = "graph replay device time (events)"
+        if device_ms is None:
+            device_ms, how = window["device_busy_us"] / BATCHES / 1e3, "traced device time"
+        idle_est = max(0.0, 1.0 - device_ms / latency["median_ms"])
         window["idle_share_untraced_estimate"] = idle_est
-        say(f"{label} idle share, estimated untraced: {idle_est:.3f} (traced device time "
-            f"{busy_per_batch_ms:.4f} ms per batch over the untraced median batch latency "
+        window["device_ms_per_batch"] = device_ms
+        say(f"{label} idle share, estimated untraced: {idle_est:.3f} ({how} {device_ms:.4f} "
+            f"ms per batch over the untraced median batch latency "
             f"{latency['median_ms']:.4f} ms)")
 
-    idle_estimate(report["profile"]["search"], full_lat, "search")
+    idle_estimate(report["profile"]["search"], full_lat, "search",
+                  graph_device_ms(torch, idx, {}, queries))
 
     # The cascade end to end, beside the full scan above.
     report["cascade_timing"] = {}
@@ -1439,9 +1705,11 @@ def main() -> int:
                 f"{lat_c['p90_ms']:.3f} ms ({lat_c['qps'] / full_lat['qps']:.2f}x the full "
                 f"scan's rate)")
             window = profile_window(torch, lambda: [
-                cidx.search(queries[64 * i: 64 * (i + 1)], k=10, rescore_mult=rm)
-                for i in range(BATCHES)], f"{label}, {BATCHES} searches of 64", top=8)
-            idle_estimate(window, lat_c, label)
+                search_eager(cidx, queries[64 * i: 64 * (i + 1)], rescore_mult=rm)
+                for i in range(BATCHES)], f"{label}, eager stages of {BATCHES} searches of 64",
+                top=8)
+            idle_estimate(window, lat_c, label,
+                          graph_device_ms(torch, cidx, {"rescore_mult": rm}, queries))
             report["cascade_timing"][f"{kind}_{rm}"] = {"latency": lat_c, "profile": window}
 
     # 2-bit and mixed precision end to end: each full scan and its cascade,
@@ -1456,17 +1724,18 @@ def main() -> int:
         say(f"4-bit full scan again, before {name}: {lat4['qps']:.1f} queries/s; batch "
             f"latency median {lat4['median_ms']:.3f} ms p90 {lat4['p90_ms']:.3f} ms")
         entry = {"full_4bit_before": lat4}
-        for what, fn in (("full", lambda qb: pidx.search(qb, k=10)),
-                         (f"{kind}_{rm}", lambda qb: cidx.search(qb, k=10, rescore_mult=rm))):
+        for what, index, kw in (("full", pidx, {}), (f"{kind}_{rm}", cidx, {"rescore_mult": rm})):
+            fn = lambda qb: index.search(qb, k=10, **kw)
             label = f"{name} {'full scan' if what == 'full' else 'cascade ' + what}"
             lat_p = batch_latencies(fn, queries, 100)
             say(f"{label}: {lat_p['qps']:.1f} queries/s over {lat_p['batches']} batches of 64; "
                 f"batch latency median {lat_p['median_ms']:.3f} ms p90 {lat_p['p90_ms']:.3f} ms "
                 f"({lat_p['qps'] / lat4['qps']:.2f}x the 4-bit full scan's rate just before)")
             window = profile_window(torch, lambda: [
-                fn(queries[64 * i: 64 * (i + 1)]) for i in range(BATCHES)],
-                f"{label}, {BATCHES} searches of 64", top=8)
-            idle_estimate(window, lat_p, label)
+                search_eager(index, queries[64 * i: 64 * (i + 1)], **kw)
+                for i in range(BATCHES)], f"{label}, eager stages of {BATCHES} searches of 64",
+                top=8)
+            idle_estimate(window, lat_p, label, graph_device_ms(torch, index, kw, queries))
             entry[what] = {"latency": lat_p, "profile": window}
         report["precision_timing"][name] = entry
 
@@ -1478,12 +1747,12 @@ def main() -> int:
         dim_pad=DIM)
     big_q = big_rng.standard_normal((64 * BATCHES, DIM), dtype=np.float32)
     big_lat = {"full": batch_latencies(lambda qb: big.search(qb, k=10), big_q, BIG_BATCHES)}
+    big_cascades = {}
     for kind in ("sign", "crumb"):
-        big_c = MonaVec(big.backend).enable_coarse(kind)
+        big_c = big_cascades[kind] = MonaVec(big.backend).enable_coarse(kind)
         for rm in RESCORE_MULTS:
             big_lat[f"{kind}_{rm}"] = batch_latencies(
                 lambda qb: big_c.search(qb, k=10, rescore_mult=rm), big_q, BIG_BATCHES)
-        del big_c
     big2 = MonaVec.from_arrays(
         big_rng.integers(0, 256, size=(BIG_N, DIM // 4), dtype=np.uint8),
         np.ones(BIG_N, np.float32), seed=SEED, metric="cosine", bits=2, dim=DIM,
@@ -1495,8 +1764,128 @@ def main() -> int:
             f"{lat_b['p90_ms']:.3f} ms, {lat_b['qps']:.1f} queries/s over "
             f"{lat_b['batches']} batches of 64")
     report["big_n_latency"] = big_lat
-    del big
+
+    # ---- 6. the engine -------------------------------------------------------
+    t_phase = time.perf_counter()
+    paths = {"full": (idx, {})}
+    for kind, cidx in cascades.items():
+        for rm in RESCORE_MULTS:
+            paths[f"{kind}_{rm}"] = (cidx, {"rescore_mult": rm})
+    for name in PRECISIONS:
+        cidx, kind = precision_cascade[name]
+        paths[f"{name}_full"] = (precision_idx[name], {})
+        paths[f"{name}_{kind}_{max(RESCORE_MULTS)}"] = (cidx, {"rescore_mult": max(RESCORE_MULTS)})
+
+    report["engine"] = {"paths": {
+        label: engine_checks(label, index, kw, queries) for label, (index, kw) in paths.items()}}
+    # The phase-4e index: rows of 40,000 dims, whose norms a reduction
+    # splits across blocks.
+    report["engine"]["paths"]["wide_full"] = engine_checks("wide_full", w_idx, {}, w_queries)
+    del w_idx
+
+    # Warm-up, then nothing new: one capture, then every replay adds its
+    # graph's tally to the launch counters and mints no plan or graph.
+    cache = engine.plan_cache()
+    for label in ("full", f"sign_{max(RESCORE_MULTS)}"):
+        index, kw = paths[label]
+        # A fresh handle on the same tensors holds no graph yet (the graphs
+        # live with the backend); an empty cache holds no plan.
+        fresh = MonaVec(dataclasses.replace(index.backend), index.mut)
+        cache.clear()
+        searcher = fresh.searcher(k=10, **kw)
+        before = cache.stats.snapshot()
+        searcher.warmup(64)
+        warm = cache.stats.since(before)
+        (graph,) = fresh.backend.graphs.values()
+        tally = {name: graph.tally.get(counter, 0) for name, counter in counters.items()}
+        reset_counts()
+        before = cache.stats.snapshot()
+        for i in range(BATCHES):
+            searcher(queries[64 * i: 64 * (i + 1)])
+        after = cache.stats.since(before)
+        got = read_counts()
+        per_replay = all(got[n] == BATCHES * tally[n] for n in counters)
+        say(f"engine warm-up {label}: warmup(64) misses {warm.misses} captures "
+            f"{warm.captures}; {BATCHES} searches after: misses {after.misses} captures "
+            f"{after.captures} hits {after.hits}; tally per replay {tally}, launches {got}")
+        expect(warm.misses == 1 and warm.captures == 1,
+               f"engine {label}: warmup(64) did not capture exactly once")
+        expect(after.misses == 0 and after.captures == 0 and after.hits == BATCHES,
+               f"engine {label}: searches after the warm-up minted a plan or a graph")
+        expect(per_replay and sum(tally.values()) > 0,
+               f"engine {label}: launches did not grow by the graph's tally each replay")
+        report["engine"][f"warmup_{label}"] = {"warmup": dataclasses.asdict(warm),
+                                               "after": dataclasses.asdict(after),
+                                               "tally": tally, "launches": got}
+        del fresh, searcher, graph
+
+    # Latency in turns, graph / eager / graph / eager, and the idle share of
+    # each, at 45,000 and 1,000,000 rows.
+    def in_turns(label, index, kw, qs, batches) -> dict:
+        graph_fn = lambda qb: index.search(qb, k=10, **kw)
+        eager_fn = lambda qb: search_eager(index, qb, **kw)
+        runs = {"graph": [], "eager": []}
+        for mode in ("graph", "eager", "graph", "eager"):
+            runs[mode].append(batch_latencies(graph_fn if mode == "graph" else eager_fn,
+                                              qs, batches))
+        # The eager stages traced (the graph's kernels), and each mode's
+        # idle share: the graph's by its replay's device time (events).
+        window = profile_window(torch, lambda: [
+            eager_fn(qs[64 * i: 64 * (i + 1)]) for i in range(BATCHES)],
+            f"{label} eager, {BATCHES} searches of 64", top=6)
+        entry = {"graph": {"profile": {}}, "eager": {"profile": window}}
+        idle_estimate(entry["graph"]["profile"], runs["graph"][0], f"{label} graph",
+                      graph_device_ms(torch, index, kw, qs))
+        idle_estimate(window, runs["eager"][0], f"{label} eager")
+        for mode in ("graph", "eager"):
+            med = [r["median_ms"] for r in runs[mode]]
+            entry[mode].update(latency=runs[mode], spread_ms=max(med) - min(med))
+        # The engine's own spans over `batches` more graph searches: what
+        # of a search's host-clocked time each step takes.
+        obs.registry().reset()
+        t0 = time.perf_counter()
+        for i in range(batches):
+            graph_fn(qs[64 * (i % BATCHES): 64 * (i % BATCHES + 1)])
+        wall_us = 1e6 * (time.perf_counter() - t0) / batches
+        hists = obs.registry().snapshot()["histograms"]
+        spans = {stage: hists[key]["sum"] / hists[key]["count"]
+                 for stage in ("plan_lookup", "execute", "sync")
+                 for key in hists if key.startswith("engine.stage_us")
+                 and f'stage="{stage}"' in key}
+        spans["rest"] = wall_us - sum(spans.values())
+        entry["graph"]["spans_us"] = spans
+        say(f"spans {label} (graph, mean us a search of {wall_us:.1f}): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in spans.items()))
+        g, e = entry["graph"]["latency"], entry["eager"]["latency"]
+        say(f"turns {label}: batch median graph {g[0]['median_ms']:.4f} / "
+            f"{g[1]['median_ms']:.4f} ms, eager {e[0]['median_ms']:.4f} / "
+            f"{e[1]['median_ms']:.4f} ms (graph, eager, graph, eager); p90 graph "
+            f"{g[0]['p90_ms']:.4f} / {g[1]['p90_ms']:.4f}, eager {e[0]['p90_ms']:.4f} / "
+            f"{e[1]['p90_ms']:.4f} ms")
+        return entry
+
+    report["engine"]["turns"] = {
+        label: in_turns(label, *paths[label], queries, 100)
+        for label in ["full"] + [f"{k}_{rm}" for k in cascades for rm in RESCORE_MULTS]}
+    big_paths = {"full": (big, {})}
+    for kind, big_c in big_cascades.items():
+        for rm in RESCORE_MULTS:
+            big_paths[f"{kind}_{rm}"] = (big_c, {"rescore_mult": rm})
+    report["engine"]["turns_1m"] = {
+        label: in_turns(f"n={BIG_N} {label}", index, kw, big_q, BIG_BATCHES)
+        for label, (index, kw) in big_paths.items()}
+    report["engine"]["memory_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    say(f"engine: {len(cache)} plans cached; torch.cuda.memory_reserved() "
+        f"{report['engine']['memory_reserved_gb']:.2f} GB after the captures")
+    del big, big_cascades, big_paths
     torch.cuda.empty_cache()
+    say(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 6b. the lifecycle ---------------------------------------------------
+    t_phase = time.perf_counter()
+    report["lifecycle"] = lifecycle_phase(torch, np, dev, corpus, queries, say, expect)
+    torch.cuda.empty_cache()
+    say(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [
         {"name": "nibble_dot", "route": "cuda",

@@ -31,6 +31,12 @@ def scan_stage(q_rot: torch.Tensor, packed: torch.Tensor, *, bits: int,
 class BruteForceIndex:
     enc: qz.Encoded
     ids: np.ndarray  # [n] external ids (u64 in the .mvec file), on the host
+    # On the card: the engine's captured CUDA graphs of searches over this
+    # index, by plan key.  They read the index's tensors at fixed addresses
+    # and hold them, so they live and die with the index (never copied by
+    # dataclasses.replace: a replaced index starts with none).
+    graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)
 
     @staticmethod
     def build(
@@ -60,8 +66,9 @@ class BruteForceIndex:
         return ops.score_packed(q_rot, self.enc)
 
     def search(self, queries, k: int, *, allow: Optional[Allowlist] = None,
-               rescore_mult: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
-        """(scores [b, k], external ids [b, k]); stable top-k, and slots with
-        no admissible row carry SENTINEL_ID and a NEG score."""
+               **kwargs) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores [b, k], external ids [b, k]) of this one segment through
+        the engine; stable top-k, and slots with no admissible row carry
+        SENTINEL_ID and a NEG score."""
         from ..engine.plan import search_backend
-        return search_backend(self, queries, k, allow=allow, rescore_mult=rescore_mult)
+        return search_backend(self, None, queries, k, allow=allow, **kwargs)

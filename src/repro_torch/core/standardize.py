@@ -9,6 +9,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -36,14 +37,51 @@ class GlobalStd:
         return GlobalStd(mean=float(x.mean()), inv_std=1.0 / max(float(x.std()), eps))
 
     def transform(self, x: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(np.float32(self.mean), device=x.device)
-        inv = torch.tensor(np.float32(self.inv_std), device=x.device)
+        mean, inv = _scalars(self.mean, self.inv_std, x.device)
         return (x - mean) * inv
+
+    def inverse(self, x: torch.Tensor) -> torch.Tensor:
+        """Undo ``transform``: x / (1/sigma) + mu, in f32."""
+        mean, inv = _scalars(self.mean, self.inv_std, x.device)
+        return x / inv + mean
+
+
+@functools.lru_cache(maxsize=64)
+def _scalars(mean: float, inv_std: float, device: torch.device):
+    # The f32 scalars as 0-d tensors, copied to the device once: a fresh
+    # host-to-device copy each query would wait for the stream, and could
+    # not be recorded into a CUDA graph.
+    return (torch.tensor(np.float32(mean), device=device),
+            torch.tensor(np.float32(inv_std), device=device))
+
+
+#: Rows one row-norm reduction runs on.  A reduction splits a row, and so
+#: orders its sum, by the shape of the whole call (on the card, PyTorch gives
+#: each row a wider block below 16 rows, and splits a long row across blocks
+#: by the row count).  Every norm therefore runs on blocks of exactly this
+#: many rows, the last one zero-padded, as ``kernels.ref._chunked_dot`` fixes
+#: the scan's chunk: a row's norm depends on the row alone, never on how many
+#: rows came with it, so a query's bytes do not depend on its batch.
+_NORM_ROWS = 64
+
+
+def row_norms(x: torch.Tensor) -> torch.Tensor:
+    """[..., d] -> [..., 1] L2 norms, each a function of its own row only."""
+    d = x.shape[-1]
+    flat = x.reshape(-1, d)
+    rows = flat.shape[0]
+    if rows == 0:
+        return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    pad = (-rows) % _NORM_ROWS
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, d))])
+    norms = torch.cat([torch.linalg.vector_norm(flat[i:i + _NORM_ROWS], dim=-1, keepdim=True)
+                       for i in range(0, flat.shape[0], _NORM_ROWS)])
+    return norms[:rows].reshape(*x.shape[:-1], 1)
 
 
 def unit_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-    return x / torch.clamp(n, min=eps)
+    return x / torch.clamp(row_norms(x), min=eps)
 
 
 def prepare(x: torch.Tensor, metric: str, std: Optional[GlobalStd] = None) -> torch.Tensor:

@@ -78,7 +78,7 @@ def _launch(wrapper, fn_name: str, codes: torch.Tensor, qcodes: torch.Tensor,
                    index, stream)
         if rc:
             cuda_build.check(cuda_build.load("binary_dot"), "binary_dot", rc)
-        wrapper.launches += 1
+        cuda_build.count_launch(wrapper)
     return out
 
 

@@ -6,10 +6,18 @@ the source, so an edited kernel is rebuilt and a stale library never loads).
 Nothing is compiled when a module is imported: the first wrapper call builds
 what it needs, and ``build`` compiles several sources in parallel, one nvcc
 process each.  Only sm_90a (Hopper) is targeted.
+
+Each wrapper counts its kernel's launches on itself (``wrapper.launches``)
+through ``count_launch``.  A launch recorded into a CUDA graph runs nothing
+until the graph is replayed, so while a stream is capturing it goes to the
+tally that ``capture_tally`` opened instead, and whoever replays the graph
+adds that tally to the wrappers each replay: ``launches`` counts kernels that
+ran on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +26,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -27,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_TALLY = threading.local()
 
 
 def find_nvcc() -> Optional[str]:
@@ -104,3 +115,27 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
         err.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name} launch failed: CUDA error {code} "
                            f"({err(code).decode()})")
+
+
+@contextlib.contextmanager
+def capture_tally() -> Iterator[Dict[object, int]]:
+    """Open a tally {wrapper: launches} for the launches a CUDA graph capture
+    on this thread records; the caller adds it to the wrappers per replay."""
+    prev = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = prev
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: on ``wrapper.launches`` when it ran
+    now, on the open capture tally when a graph capture recorded it (a
+    capture outside any tally is counted by no one)."""
+    if torch.cuda.is_current_stream_capturing():
+        counts = getattr(_TALLY, "counts", None)
+        if counts is not None:
+            counts[wrapper] = counts.get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1

@@ -82,7 +82,7 @@ def _gather(wrapper, fn_name: str, bits: int, packed: torch.Tensor, q_rot: torch
                    rows, m, n, per * dk, index, stream)
         if rc:
             cuda_build.check(cuda_build.load("gather_dot"), "gather_dot", rc)
-        wrapper.launches += 1
+        cuda_build.count_launch(wrapper)
     return out
 
 

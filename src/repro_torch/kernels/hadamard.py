@@ -80,7 +80,7 @@ def fwht_cuda(x: torch.Tensor, signs: torch.Tensor, d_pad: int) -> torch.Tensor:
     if rc:
         cuda_build.check(cuda_build.load("hadamard"), "hadamard", rc)
     if n:
-        fwht_cuda.launches += 1
+        cuda_build.count_launch(fwht_cuda)
     return out
 
 

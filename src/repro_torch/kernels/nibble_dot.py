@@ -84,7 +84,7 @@ def _scan(wrapper, fn_name: str, bits: int, packed: torch.Tensor,
     if rc:
         cuda_build.check(cuda_build.load("nibble_dot"), "nibble_dot", rc)
     if b and n:
-        wrapper.launches += 1
+        cuda_build.count_launch(wrapper)
     return out
 
 

@@ -8,7 +8,8 @@ holds every CUDA kernel against them on the card.
 The full-corpus dot runs in fixed 8-query chunks, as the reference's does: a
 plain ``[b, d] @ [d, n]`` may pick another reduction strategy per shape, so
 the same query row could score differently at different batch sizes.  With
-the chunk shape fixed, each row's score depends only on (row, corpus).
+the chunk shape fixed, each row's score depends only on (row, corpus).  The
+gathered rescore's batched product is chunked the same way.
 """
 
 from __future__ import annotations
@@ -111,8 +112,23 @@ def _gather_dot(packed: torch.Tensor, q_rot: torch.Tensor, cand: torch.Tensor,
     rows = packed[cand.long().clamp(0, n - 1)]                       # [b, m, bytes]
     codes = unpack_4bit(rows) if bits == 4 else unpack_2bit(rows)
     deq = lloydmax.dequantize(codes, bits)                           # [b, m, d']
-    scores = torch.bmm(deq, q_rot[:, :, None])[..., 0]
+    scores = _chunked_bmm(deq, q_rot)
     return torch.where(valid, scores, torch.zeros((), device=scores.device))
+
+
+def _chunked_bmm(deq: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
+    """[b, m, d] x [b, d] -> [b, m] in fixed 8-query batches: a plain
+    ``bmm`` over all b may split a query's dot another way at another b
+    (on the CPU, one query's product runs across threads), so the batch
+    shape is fixed as ``_chunked_dot`` fixes the full scan's."""
+    b = deq.shape[0]
+    pad = (-b) % _ROW_CHUNK
+    if pad:
+        deq = torch.cat([deq, deq.new_zeros((pad,) + tuple(deq.shape[1:]))])
+        q_rot = torch.cat([q_rot, q_rot.new_zeros((pad, q_rot.shape[1]))])
+    out = torch.cat([torch.bmm(deq[i:i + _ROW_CHUNK], q_rot[i:i + _ROW_CHUNK, :, None])[..., 0]
+                     for i in range(0, deq.shape[0], _ROW_CHUNK)])
+    return out[:b]
 
 
 def gather_nibble_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor,

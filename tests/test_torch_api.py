@@ -213,9 +213,11 @@ def test_reference_file_loads_in_port(metric, tmp_path):
                                           ("v11_tuned_ivf.mvec", 11)])
 def test_load_rejects_other_versions(name, version):
     """Each fixture holds something the port cannot represent yet, and the
-    error names its ROADMAP item (the v10 fixture has extra segments).  The
-    v7 fixture loads: tests/test_torch_mixed.py round-trips it."""
-    item = {8: "A4", 9: "A6", 10: "A4", 11: "A11"}[version]
+    error names its ROADMAP item: the v8 fixture is an IVF index (A7), the
+    v10 one has metadata columns (A6).  The v7 fixture loads:
+    tests/test_torch_mixed.py round-trips it, and tests/test_torch_segments.py
+    the v8 fixture at the format level."""
+    item = {8: "A7", 9: "A6", 10: "A6", 11: "A11"}[version]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         MonaVec.load(os.path.join(GOLDEN, name), device="cpu")
 

@@ -559,7 +559,8 @@ def test_reference_v10_loads_in_port_and_saves_its_bytes(kind, tmp_path):
 
 
 def test_golden_v10_with_segments_and_metadata_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    """Its segments load now; its metadata columns are ROADMAP A6."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         MonaVec.load(os.path.join(GOLDEN, "v10_coarse_bruteforce.mvec"), device="cpu")
 
 
@@ -571,8 +572,19 @@ def test_v10_the_port_cannot_represent_raises(what, tmp_path):
     data = bytearray(open(path, "rb").read())
     codes = 64 * 2
     if what == "tombstone":
-        data[-(8 + codes) - 1] = 0x80          # last byte of the tombstone bitmap
-        err, match = NotImplementedError, "ROADMAP A4"
+        # The port now holds it: a file whose row 56 is tombstoned (its bit
+        # is the top bit of the bitmap's last byte) loads, and never
+        # returns that row.
+        data[-(8 + codes) - 1] = 0x80
+        path2 = tmp_path / "tomb.mvec"
+        path2.write_bytes(bytes(data))
+        idx = MonaVec.load(str(path2), device="cpu")
+        assert idx.n_live == 63 and idx.mut.base_tombs[56] and idx.mut.base_tombs.sum() == 1
+        ids = idx.search(x[50:60], 64)[1]
+        assert 56 not in ids.tolist() and (ids[:, -1] == SENTINEL_ID).all()
+        ids = idx.search(x[50:60], 10, rescore_mult=2)[1]       # the cascade
+        assert 56 not in ids.tolist() and ids[6, 0] != SENTINEL_ID
+        return
     elif what == "metadata":
         data[47] = 1
         err, match = NotImplementedError, "ROADMAP A6"

@@ -46,8 +46,9 @@ def test_port_imports_and_runs_with_jax_blocked():
         "import repro_torch\n"
         "from repro_torch.kernels import (binary_dot, cuda_build, gather_dot, hadamard,\n"
         "                                 nibble_dot, ops, ref)\n"
-        "from repro_torch.engine import plan\n"
-        "from repro_torch.core import binary, convert, mvec_format\n"
+        "from repro_torch import obs\n"
+        "from repro_torch.engine import batcher, plan\n"
+        "from repro_torch.core import binary, convert, mvec_format, segments, tenancy\n"
         "from repro_torch.data import synthetic\n"
         "x = synthetic.embedding_corpus(0, 64, 24)\n"
         "s, i = repro_torch.MonaVec.build(x, device='cpu').search(x[:2], 3)\n"
@@ -55,6 +56,14 @@ def test_port_imports_and_runs_with_jax_blocked():
         "idx = repro_torch.MonaVec.build(x, coarse='crumb', device='cpu')\n"
         "s, i = idx.search(x[:2], 3, rescore_mult=2)\n"
         "assert i[0, 0] == 0 and i[1, 0] == 1\n"
+        "new = idx.add(synthetic.embedding_corpus(1, 16, 24))\n"
+        "assert idx.delete([0, int(new[0])]) == 2 and idx.n_live == 78\n"
+        "s, i = idx.searcher(k=3, rescore_mult=2).warmup(2)(x[:2])\n"
+        "assert 0 not in i.tolist() and i[1, 0] == 1\n"
+        "reg = tenancy.TenantRegistry()\n"
+        "reg.put('t', 'c', idx)\n"
+        "t = batcher.MicroBatcher(reg).submit('t', 'c', x[1:2], k=3)\n"
+        "assert t.result()[1][0, 0] == 1 and obs.registry().snapshot()['counters']\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

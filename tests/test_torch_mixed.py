@@ -512,7 +512,8 @@ def test_v10_with_a_permutation_crosses_both_ways(kind, tmp_path):
 
 
 def test_golden_v10_with_segments_and_metadata_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    """Its segments load now; its metadata columns are ROADMAP A6."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         MonaVec.load(os.path.join(GOLDEN, "v10_coarse_bruteforce.mvec"), device="cpu")
 
 

@@ -132,3 +132,95 @@ def assert_search_matches(port, ref, ref_full, ids, tol):
             t = tol[b, prow] + tol[b, rrow]
             assert abs(float(ref_full[b, prow]) - float(r_scores[b, j])) <= t, (b, j)
             assert abs(float(p_scores[b, j]) - float(r_scores[b, j])) <= t, (b, j)
+
+
+# ---------------------------------------------------------------------------
+# Segmented indexes in both packages over one encoding.
+# ---------------------------------------------------------------------------
+
+def _segments_of(idx):
+    """[(enc, ids, tombs)] of either package's MonaVec, base first."""
+    return ([(idx.backend.enc, idx.backend.ids, idx.mut.base_tombs)]
+            + [(s.enc, s.ids, s.tombs) for s in idx.mut.extras])
+
+
+def port_over_reference(ref):
+    """The port's MonaVec over the reference's segments, ids, tombstones and
+    next ordinal (``convert.segmented_from_arrays``); coarse codes derived by
+    the port."""
+    from repro_torch.core.convert import segmented_from_arrays
+
+    enc = ref.backend.enc
+    std = enc.std
+    segs = [{"packed": np.asarray(e.packed), "qnorms": np.asarray(e.qnorms), "seed": e.seed,
+             "ids": ids, "tombs": tombs} for e, ids, tombs in _segments_of(ref)]
+    return segmented_from_arrays(
+        segs, next_ordinal=ref.mut.next_ordinal, metric=enc.metric, bits=enc.bits,
+        dim=enc.dim, dim_pad=enc.dim_pad, n4_dims=enc.n4_dims, perm=enc.perm,
+        std_mean=None if std is None else std.mean,
+        std_inv_std=None if std is None else std.inv_std, coarse=enc.coarse, device="cpu")
+
+
+def reference_over_port(idx):
+    """The reference's MonaVec over the port's segments (its coarse codes
+    derived by the reference), so that a search comparison does not hinge
+    on a boundary flip of an encode."""
+    import jax.numpy as jnp
+    from repro.core import BruteForceIndex, MonaVec
+    from repro.core import quantize as rqz
+    from repro.core import segments as rseg
+    from repro.core.standardize import GlobalStd
+
+    def ref_enc(e):
+        std = None if e.std is None else GlobalStd(e.std.mean, e.std.inv_std)
+        return rqz.Encoded(packed=jnp.asarray(e.packed.cpu().numpy()),
+                           qnorms=jnp.asarray(e.qnorms.cpu().numpy()), seed=e.seed,
+                           metric=e.metric, bits=e.bits, dim=e.dim, dim_pad=e.dim_pad,
+                           n4_dims=e.n4_dims, std=std, perm=e.perm)
+
+    (e0, ids0, t0), *extras = _segments_of(idx)
+    mut = rseg.SegmentedState(
+        base_tombs=t0.copy(), next_ordinal=idx.mut.next_ordinal,
+        extras=[rseg.Segment(enc=ref_enc(e), ids=ids, tombs=t.copy()) for e, ids, t in extras])
+    ref = MonaVec(BruteForceIndex(enc=ref_enc(e0), ids=ids0), mut=mut)
+    return ref if e0.coarse is None else ref.enable_coarse(e0.coarse)
+
+
+def segmented_tolerance(idx, queries: np.ndarray) -> np.ndarray:
+    """[b, n_total] score bounds of the port's index, segment by segment."""
+    cols = []
+    for enc, _, _ in _segments_of(idx):
+        q_rot = tqz.encode_query(torch.from_numpy(queries), enc).numpy()
+        cols.append(adjusted_tolerance(dot_tolerance(q_rot, enc.packed.numpy(), enc.bits,
+                                                     enc.n4_dims),
+                                       enc.qnorms.numpy(), enc.metric))
+    return np.concatenate(cols, axis=1)
+
+
+def reference_full_scores(ref, queries: np.ndarray) -> np.ndarray:
+    """The reference's adjusted scores [b, n_total] of every row, unmasked."""
+    import jax.numpy as jnp
+    from repro.core import quantize as rqz
+    from repro.kernels import ops as rops
+
+    cols = [np.asarray(rops.score_packed(rqz.encode_query(jnp.asarray(queries), enc), enc,
+                                         use_kernel=False))
+            for enc, _, _ in _segments_of(ref)]
+    return np.concatenate(cols, axis=1)
+
+
+def assert_segmented_search_matches(idx, ref, queries: np.ndarray, k: int, **kw):
+    """The port's search of ``idx`` against the reference's of ``ref`` (the
+    same codes): ids equal except ties within the tolerance, scores within
+    it, sentinels in the same slots."""
+    import jax.numpy as jnp
+
+    got = idx.search(queries, k, **kw)
+    want = ref.search(jnp.asarray(queries), k, **kw)
+    assert np.array_equal(got[1] == SENTINEL, want[1] == SENTINEL)
+    assert_search_matches(got, want, reference_full_scores(ref, queries), idx.ids,
+                          segmented_tolerance(idx, queries))
+    return got, want
+
+
+SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
