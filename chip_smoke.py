@@ -103,7 +103,35 @@ Phases, in order (any failure exits non-zero and prints no result line):
    sequence from a fresh build to equal file hashes; the mutated index's
    full scan and sign cascade pass phase 6's graph and bucketing checks;
    a loop of add + search keeps one graph per plan key and returns the old
-   segment set's graph memory.
+   segment set's graph memory;
+7. metadata columns, ``where=`` predicates and the IVF backend, after the
+   earlier phases' indexes (and their graphs) are dropped.  7a: the phase-4
+   corpus with numpy-seeded columns (``lang`` str of 8 values, ``date`` i64
+   with int64 min and max planted, ``price`` f64 with -0.0, +0.0, +inf and
+   -inf planted) and five predicates (about 12.5%, 1%, 60%, 0% and 60% of
+   the rows): the eager mask stage on the card equal to ``evaluate``; the
+   filtered full scan and sign_32 (graph replays, launch counters around
+   each) byte-equal to the same search with ``Allowlist(evaluate mask)``,
+   every id admissible, recall@10 against exact cosine over the admissible
+   rows and against the CPU plain path over 2 batches (0.01, 99% of ids); a
+   second constant of one structure minting no plan and no graph; v9 and
+   v10 save -> load -> search byte-identical; phase 6's graph / eager /
+   bucket checks on both filtered paths; all of it again after adding
+   2,500 rows with their columns and deleting 500 ids; the filtered paths'
+   latency and graph device time in turns with the unfiltered ones.  7b:
+   ``build(index="ivf")`` at the reference's nlist=64, train_iters=25: two
+   builds write the same bytes; the card's clustering of 8,000 rows against
+   the CPU plain one (reported); nprobe 8, 16 and 64: launches (the
+   gathered rescore and the butterfly, no full scan), recall against exact
+   and against the CPU plain search of the card-built file, probe sets
+   compared, and at nprobe = nlist every score byte-equal to the full
+   scan's; a 2-bit IVF at nprobe 16 (B5); ``where=`` on IVF; phase 6's
+   checks at nprobe 8; mixed traffic (full, filtered full, IVF nprobe 8 and
+   16, 3 rounds after a warm-up) capturing nothing; IVF latency and graph
+   device time at nprobe 8 and 16, B4 and B5 at IVF's candidate width
+   beside ``bmm`` and the bound; add 2,500 rows, delete 500 (the merge
+   exact, no tombstoned id), v8 round trip, compact; IVF at 1,000,000 rows
+   (random codes, 1,024 balanced cells, nprobe 16): timing only.
 
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -117,6 +145,7 @@ import contextlib
 import ctypes
 import dataclasses
 import faulthandler
+import gc
 import hashlib
 import json
 import math
@@ -125,6 +154,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
@@ -159,6 +189,13 @@ LIFECYCLE_DELETE = 1000        # phase 6b: ids deleted over all three segments
 ADD_LOOP = (5, 500)            # phase 6b: rounds of add + search, rows added a round
 ADD_LOOP_SLACK = 64 << 20      # phase 6b: reserved bytes the loop may grow past its codes
 WIDE_N, WIDE_DIM = 2000, 40000   # phase 4e: d' = 65536, past one block's butterfly
+# Phase 7: metadata columns, where= predicates and the IVF backend.
+LANGS = ("en", "de", "fr", "es", "it", "pt", "nl", "sv")   # the str column's 8 values
+FILTER_ADD, FILTER_DELETE = 2500, 500   # phase 7: rows added (with meta=), ids deleted
+IVF_NLIST, IVF_TRAIN_ITERS = 64, 25     # the reference's build defaults (ivf.py:176-177)
+IVF_NPROBES = (8, 16, 64)               # 64 = nlist: every cell, the full scan's scores
+IVF_CPU_ROWS = 8000                     # rows of the CPU-against-card clustering check
+IVF_BIG_NLIST, IVF_BIG_NPROBE = 1024, 16   # the 1,000,000-row IVF timing
 
 FAILURES: list = []
 
@@ -178,6 +215,20 @@ def expect(cond: bool, what: str) -> None:
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S) -> tuple:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gathered_bound_ms(torch, cand, d_pad: int, bits: int) -> tuple:
+    """(bound ms, what binds, distinct rows) of a gathered rescore of the
+    candidates ``cand`` [b, m] (-1: none): the codes of each distinct
+    candidate row read once (a row several queries share comes in once),
+    the queries and candidates read and the [b, m] scores written; 2 d'
+    operations per valid candidate at the f32 rate."""
+    b, m = cand.shape
+    valid = cand[cand >= 0]
+    rows = int(torch.unique(valid).numel())
+    bnd, by = bound_ms(nbytes=rows * d_pad * bits / 8 + 4.0 * b * d_pad + 8.0 * b * m
+                       + 4 * 2 ** bits, ops=2.0 * int(valid.numel()) * d_pad)
+    return bnd, by, rows
 
 
 def batch_latencies(search, queries, batches: int) -> dict:
@@ -243,7 +294,7 @@ def graph_device_ms(torch, index, kw: dict, qs, replays: int = 10) -> float:
     not in it)."""
     from repro_torch import MonaVec
 
-    fresh = MonaVec(dataclasses.replace(index.backend), index.mut)
+    fresh = MonaVec(dataclasses.replace(index.backend), index.mut, index.meta)
     fresh.search(qs[:64], k=10, **kw)
     (graph,) = fresh.backend.graphs.values()
     graph.graph.replay()
@@ -266,7 +317,7 @@ def search_eager(index, qb, bucketed: bool = True, **kw):
     from repro_torch import engine
 
     return engine.search_eager(index.backend, None if index.mut.is_static else index.mut,
-                               qb, 10, bucketed=bucketed, **kw)
+                               qb, 10, bucketed=bucketed, meta=index.meta, **kw)
 
 
 def engine_checks(label: str, index, kw: dict, qs) -> dict:
@@ -448,6 +499,466 @@ def lifecycle_phase(torch, np, dev, corpus, queries, say, expect) -> dict:
         out["add_loop"] = {"graphs_held": stored, "reserved_bytes": reserved,
                            "codes_bytes": codes}
         del index, comp, loaded, cpu, full_scores
+    return out
+
+
+def filter_ivf_phase(c) -> dict:
+    """Phase 7: metadata columns and where= predicates on the phase-4 corpus
+    (full scan and sign cascade, static and after add + delete), the IVF
+    backend at the reference's defaults, mixed traffic through the graphs,
+    and their timing.  ``c`` carries the main phase's tensors and helpers."""
+    torch, np, dev = c.torch, c.np, c.dev
+    from repro_torch import MonaVec, engine
+    from repro_torch.core import ivf as ivf_mod, lloydmax, predicate as pr, quantize as qz
+    from repro_torch.core import scoring
+    from repro_torch.core.allowlist import Allowlist
+    from repro_torch.core.convert import ivf_from_arrays, segmented_from_arrays
+    from repro_torch.core.metadata import MetaStore
+    from repro_torch.core.predicate import Eq, Ge, Gt, In, Lt, Ne
+    from repro_torch.core.segments import SENTINEL_ID
+    from repro_torch.data.synthetic import embedding_corpus
+    from repro_torch.kernels import ops
+
+    corpus, queries, expect, say = c.corpus, c.queries, c.expect, c.say
+    rm = max(RESCORE_MULTS)
+    cpu_q = 64 * CPU_CASCADE_BATCHES          # queries of every CPU plain comparison
+    out: dict = {}
+    rng = np.random.default_rng(SEED + 7)
+    i64 = np.iinfo(np.int64)
+
+    def columns(n: int) -> dict:
+        return {"lang": np.array(LANGS)[rng.integers(0, len(LANGS), n)],
+                "date": rng.integers(0, 1_000_000, n), "price": rng.standard_normal(n)}
+
+    cols = columns(N)
+    cols["date"][:2] = [i64.min, i64.max]
+    cols["price"][2:6] = [-0.0, 0.0, np.inf, -np.inf]
+    preds = {"eq_lang": Eq("lang", "en"),                                  # ~12.5%
+             "lang_date": Eq("lang", "en") & Lt("date", 80_000),           # ~1%
+             "price_or_lang": Ge("price", 0.0) | In("lang", ["de", "fr"]),  # ~60%
+             "none": Gt("price", np.inf),                                  # 0%
+             "not_in": ~In("lang", ["es", "it", "pt"]) & Ne("date", int(i64.max))}
+    second = Eq("lang", "en") & Lt("date", 400_000)                        # ~5%
+    added = embedding_corpus(SEED + 8, FILTER_ADD, DIM)
+    added_cols = columns(FILTER_ADD)
+    qt = torch.from_numpy(queries).to(dev)
+    rows_t = torch.cat([torch.from_numpy(corpus), torch.from_numpy(added)]).to(dev)
+    exact_all = scoring.score_f32(qt, rows_t, "cosine")      # [640, N + FILTER_ADD]
+    del rows_t
+
+    def exact_ids(mask: np.ndarray) -> np.ndarray:
+        """Exact f32 cosine top-10 over the admissible rows (row == id)."""
+        s = exact_all[:, :mask.shape[0]].clone()
+        s[:, ~torch.from_numpy(mask).to(dev)] = -float("inf")
+        return scoring.topk(s, 10)[1].cpu().numpy()
+
+    def recall(found: np.ndarray, exact: np.ndarray) -> float:
+        return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10.0
+                              for a, b in zip(found, exact)]))
+
+    def run(index, kw: dict, batches: int = BATCHES):
+        res = [index.search(queries[64 * i: 64 * (i + 1)], k=10, **kw) for i in range(batches)]
+        return np.concatenate([r[0] for r in res]), np.concatenate([r[1] for r in res])
+
+    def same(a, b) -> bool:
+        return a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes()
+
+    def launched(fn):
+        c.reset_counts()
+        torch.cuda.synchronize()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, c.read_counts()
+
+    def device_mask(index, p) -> np.ndarray:
+        """The predicate_mask stage run eagerly on the card, as the plan runs it."""
+        store, args = index.meta, []
+        for col, key in zip(pr.leaf_columns(p), pr.constant_keys(p, store)):
+            args += [store[col].on(dev), torch.from_numpy(np.array(key)).to(dev)]
+        live = torch.ones(store.n_rows, dtype=torch.bool, device=dev)
+        return pr.build_stage_fn(p)(live, *args).cpu().numpy()
+
+    def cpu_twin(index, coarse=None):
+        """The port's plain path on the CPU over the same segments and columns."""
+        e0 = index.backend.enc
+        segs = [{"packed": e.packed.cpu().numpy(), "qnorms": e.qnorms.cpu().numpy(),
+                 "seed": e.seed, "ids": i, "tombs": t}
+                for e, i, t in [(e0, index.backend.ids, index.mut.base_tombs)]
+                + [(s.enc, s.ids, s.tombs) for s in index.mut.extras]]
+        return segmented_from_arrays(segs, next_ordinal=index.mut.next_ordinal,
+                                     metric="cosine", bits=e0.bits, dim=DIM,
+                                     dim_pad=e0.dim_pad, coarse=coarse, meta=index.meta,
+                                     device="cpu")
+
+    # ---- 7a. filtered search ------------------------------------------------
+    t_phase = time.perf_counter()
+    fflat = MonaVec.build(corpus, meta=cols)
+    fsign = MonaVec.build(corpus, meta=cols, coarse="sign")
+    paths = {"full": ({}, ("fwht", "nibble_dot"), ()),
+             f"sign_{rm}": ({"rescore_mult": rm}, ("fwht", "sign_hamming", "gather_nibble_dot"),
+                            ("nibble_dot",))}
+
+    def filtered_checks(tag: str, td: Path) -> dict:
+        n_total = fflat.n_total
+        alive = np.concatenate([~fflat.mut.base_tombs] + [~s.tombs for s in fflat.mut.extras])
+        cpu = {"full": cpu_twin(fflat), f"sign_{rm}": cpu_twin(fsign, "sign")}
+        res: dict = {}
+        for name, p in preds.items():
+            mask = pr.evaluate(p, fflat.meta)
+            mask_ok = (np.array_equal(device_mask(fflat, p), mask)
+                       and np.array_equal(device_mask(fsign, p), mask))
+            expect(mask_ok, f"filter {tag} {name}: the device mask differs from evaluate")
+            exact = exact_ids(mask & alive)
+            entry = {"selectivity": float(mask.mean()), "mask_equals_evaluate": mask_ok}
+            for label, (kw, ran, not_ran) in paths.items():
+                index = fflat if label == "full" else fsign
+                (s_card, i_card), got = launched(lambda: run(index, {"where": p, **kw}))
+                oracle = run(index, {"allow": Allowlist(mask=mask, n_allowed=int(mask.sum())),
+                                     **kw})
+                real = i_card[i_card != SENTINEL_ID].astype(np.int64)
+                admissible = bool((real < n_total).all() and (mask & alive)[real].all())
+                kernels_ok = (all(got[k] > 0 for k in ran)
+                              and all(got[k] == 0 for k in not_ran))
+                e = {"launches": got, "oracle_bytes_equal": same((s_card, i_card), oracle),
+                     "admissible": admissible}
+                expect(e["oracle_bytes_equal"], f"filter {tag} {name} {label}: not the "
+                                                "allowlist oracle's bytes")
+                expect(admissible, f"filter {tag} {name} {label}: an inadmissible id came back")
+                expect(kernels_ok, f"filter {tag} {name} {label}: launches {got}")
+                if name == "none":
+                    e["all_sentinel"] = bool((i_card == SENTINEL_ID).all())
+                    expect(e["all_sentinel"], f"filter {tag} none {label}: a row came back")
+                else:
+                    s_cpu, i_cpu = cpu[label].search(queries[:cpu_q], k=10, where=p, **kw)
+                    e.update(recall_at_10=recall(i_card, exact),
+                             recall_at_10_card_cpu_queries=recall(i_card[:cpu_q], exact),
+                             recall_at_10_cpu=recall(i_cpu, exact),
+                             ids_equal_cpu=float(np.mean(i_cpu == i_card[:cpu_q])))
+                    expect(abs(e["recall_at_10_card_cpu_queries"] - e["recall_at_10_cpu"])
+                           <= 0.01, f"filter {tag} {name} {label}: recall vs the CPU")
+                    expect(e["ids_equal_cpu"] >= 0.99,
+                           f"filter {tag} {name} {label}: ids differ from the CPU in over 1%")
+                found = ("every slot a sentinel " + str(e["all_sentinel"]) if name == "none"
+                         else f"recall@10 {e['recall_at_10']:.4f} vs exact over the admissible "
+                              f"rows; on the {cpu_q} CPU queries card "
+                              f"{e['recall_at_10_card_cpu_queries']:.4f} CPU plain "
+                              f"{e['recall_at_10_cpu']:.4f}, ids equal {e['ids_equal_cpu']:.4%}")
+                say(f"filter {tag} {name} ({entry['selectivity']:.2%} of rows) {label}: mask = "
+                    f"evaluate {mask_ok}; = allowlist oracle {e['oracle_bytes_equal']}; "
+                    f"admissible {admissible}; {found}; launches {got}")
+                entry[label] = e
+            res[name] = entry
+        # Another constant of one structure: no new plan, no capture.
+        cache = engine.plan_cache()
+        before = cache.stats.snapshot()
+        for label, (kw, _, _) in paths.items():
+            index = fflat if label == "full" else fsign
+            mask = pr.evaluate(second, index.meta)
+            got = run(index, {"where": second, **kw})
+            want = run(index, {"allow": Allowlist(mask=mask, n_allowed=int(mask.sum())), **kw})
+            expect(same(got, want), f"filter {tag} second constant {label}: not the oracle's")
+        delta = cache.stats.since(before)
+        share = float(pr.evaluate(second, fflat.meta).mean())
+        say(f"filter {tag}: a second constant ({share:.2%} of rows) of the lang_date "
+            f"structure, and its oracle: {delta.misses} new plans, {delta.captures} captures")
+        expect(delta.misses == 0 and delta.captures == 0,
+               f"filter {tag}: a second constant minted a plan or captured a graph")
+        res["second_constant"] = {"misses": delta.misses, "captures": delta.captures}
+        # v9 (columns) and v10 (columns and coarse codes): save -> load -> search.
+        files = {}
+        for index, kw, version in ((fflat, {}, 9), (fsign, {"rescore_mult": rm}, 10)):
+            path = td / f"{tag}-v{version}.mvec"
+            index.save(str(path))
+            back = MonaVec.load(str(path))
+            p = preds["lang_date"]
+            files[version] = (path.read_bytes()[4] == version and same(
+                back.search(queries[:64], k=10, where=p, **kw),
+                index.search(queries[:64], k=10, where=p, **kw)))
+            expect(files[version], f"filter {tag}: v{version} save -> load -> search differs")
+            del back
+        say(f"filter {tag}: save -> load -> search byte-identical (by version): {files}")
+        res["files"] = files
+        return res
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tdir:
+        td = Path(tdir)
+        out["filter_static"] = filtered_checks("static", td)
+        out["engine_filtered_full"] = engine_checks("filtered full", fflat,
+                                                      {"where": preds["eq_lang"]}, queries)
+        out["engine_filtered_sign"] = engine_checks(
+            f"filtered sign_{rm}", fsign, {"where": preds["eq_lang"], "rescore_mult": rm},
+            queries)
+        # 7c: the filtered paths against their unfiltered runs, in turns.
+        timing: dict = {}
+        p = preds["eq_lang"]
+        for label, index, kw in (("full", fflat, {}), (f"sign_{rm}", fsign, {"rescore_mult": rm})):
+            runs = {"plain": [], "filtered": []}
+            for mode in ("plain", "filtered", "plain", "filtered"):
+                kwm = dict(kw, where=p) if mode == "filtered" else kw
+                runs[mode].append(batch_latencies(
+                    lambda qb: index.search(qb, k=10, **kwm), queries, 100))
+            entry = {}
+            for mode in runs:
+                kwm = dict(kw, where=p) if mode == "filtered" else kw
+                dev_ms = graph_device_ms(torch, index, kwm, queries)
+                lat = runs[mode]
+                entry[mode] = {"latency": lat, "graph_device_ms": dev_ms,
+                               "idle_share_estimate": max(0.0, 1 - dev_ms / lat[0]["median_ms"])}
+            say(f"filter timing {label} (eq_lang) in turns unfiltered / filtered / unfiltered / "
+                f"filtered: batch median {runs['plain'][0]['median_ms']:.4f} / "
+                f"{runs['filtered'][0]['median_ms']:.4f} / {runs['plain'][1]['median_ms']:.4f} / "
+                f"{runs['filtered'][1]['median_ms']:.4f} ms, p90 "
+                f"{runs['plain'][0]['p90_ms']:.4f} / {runs['filtered'][0]['p90_ms']:.4f} / "
+                f"{runs['plain'][1]['p90_ms']:.4f} / {runs['filtered'][1]['p90_ms']:.4f} ms; "
+                f"graph device {entry['plain']['graph_device_ms']:.4f} / "
+                f"{entry['filtered']['graph_device_ms']:.4f} ms; idle share estimate "
+                f"{entry['plain']['idle_share_estimate']:.3f} / "
+                f"{entry['filtered']['idle_share_estimate']:.3f}")
+            timing[f"filtered_{label}"] = entry
+        out["timing"] = timing
+
+        # Add rows with their columns, delete ids over both segments: every
+        # check again.
+        for index in (fflat, fsign):
+            index.add(added, meta=added_cols)
+        ids = fflat.ids
+        dead = ids[::(N + FILTER_ADD) // FILTER_DELETE][:FILTER_DELETE]
+        n_dead = [index.delete(dead) for index in (fflat, fsign)]
+        expect(n_dead == [FILTER_DELETE] * 2, f"filter: deleted {n_dead}")
+        out["filter_mutated"] = filtered_checks("mutated", td)
+    say(f"phase 7a: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 7b. IVF --------------------------------------------------------------
+    t_phase = time.perf_counter()
+    ivf_kw = {"index": "ivf", "nlist": IVF_NLIST, "train_iters": IVF_TRAIN_ITERS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = MonaVec.build(corpus, **ivf_kw)
+    torch.cuda.synchronize()
+    ivf_build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tdir:
+        td = Path(tdir)
+        ivf.save(str(td / "a.mvec"))
+        MonaVec.build(corpus, **ivf_kw).save(str(td / "b.mvec"))
+        builds_equal = (td / "a.mvec").read_bytes() == (td / "b.mvec").read_bytes()
+        cpu_ivf = MonaVec.load(str(td / "a.mvec"), device="cpu")
+    be = ivf.backend
+    cells = np.diff(be.offsets)
+    say(f"ivf build {N}x{DIM} nlist={IVF_NLIST} train_iters={IVF_TRAIN_ITERS}: "
+        f"{ivf_build_s:.3f} s; cells min {cells.min()} median {int(np.median(cells))} max "
+        f"{cells.max()}; two card builds give byte-identical files: {builds_equal}")
+    expect(builds_equal, "ivf: two card builds wrote different files")
+
+    def assignment(b) -> np.ndarray:
+        a = np.empty(b.enc.n, dtype=np.int64)
+        a[b.order] = np.repeat(np.arange(b.nlist), np.diff(b.offsets))
+        return a
+
+    card8 = MonaVec.build(corpus[:IVF_CPU_ROWS], **ivf_kw).backend
+    cpu8 = MonaVec.build(corpus[:IVF_CPU_ROWS], device="cpu", **ivf_kw).backend
+    cent_diff = float((card8.centroids.cpu() - cpu8.centroids).abs().max())
+    agree = float(np.mean(assignment(card8) == assignment(cpu8)))
+    say(f"ivf clustering of the first {IVF_CPU_ROWS} rows, card against CPU plain: centroid "
+        f"max|diff| {cent_diff:.3e}, assignments equal for {agree:.4%} of rows (reported)")
+    out["ivf_build"] = {"seconds": ivf_build_s, "builds_equal": builds_equal,
+                        "cells": [int(cells.min()), int(np.median(cells)), int(cells.max())],
+                        "cpu_rows": IVF_CPU_ROWS, "centroid_max_abs_diff": cent_diff,
+                        "assignment_agreement": agree}
+    del card8, cpu8
+
+    exact = exact_ids(np.ones(N, dtype=bool))
+    full_scores = torch.cat([ops.score_packed(qz.encode_query(qt[64 * i: 64 * (i + 1)], be.enc),
+                                              be.enc) for i in range(BATCHES)])
+    out["ivf"] = {}
+    for nprobe in IVF_NPROBES:
+        (s_card, i_card), got = launched(lambda: run(ivf, {"nprobe": nprobe}))
+        kernels_ok = (got["gather_nibble_dot"] > 0 and got["fwht"] > 0
+                      and got["nibble_dot"] == 0)
+        s_cpu, i_cpu = cpu_ivf.search(queries[:cpu_q], k=10, nprobe=nprobe)
+        probes = []
+        for q_in, b_ in ((qt[:cpu_q], be),
+                         (torch.from_numpy(queries[:cpu_q]), cpu_ivf.backend)):
+            cs = ivf_mod.probe_scores(qz.encode_query(q_in, b_.enc), b_.centroids, "cosine")
+            probes.append(np.sort(scoring.topk(cs, nprobe)[1].cpu().numpy(), axis=1))
+        probe_diff = int((probes[0] != probes[1]).any(axis=1).sum())
+        e = {"launches": got, "recall_at_10": recall(i_card, exact),
+             "recall_at_10_card_cpu_queries": recall(i_card[:cpu_q], exact),
+             "recall_at_10_cpu": recall(i_cpu, exact),
+             "ids_equal_cpu": float(np.mean(i_cpu == i_card[:cpu_q])),
+             "probe_sets_differing": probe_diff, "max_candidates": be.max_candidates(nprobe)}
+        if nprobe == IVF_NLIST:
+            e["scores_equal_full_scan"] = (full_scores.gather(1, torch.from_numpy(
+                i_card.astype(np.int64)).to(dev)).cpu().numpy().tobytes() == s_card.tobytes())
+            expect(e["scores_equal_full_scan"], "ivf: at nprobe=nlist a score differs from "
+                                                "the full scan's")
+        say(f"ivf nprobe={nprobe} (max_cand {e['max_candidates']}): recall@10 "
+            f"{e['recall_at_10']:.4f} vs exact; on the {cpu_q} CPU queries card "
+            f"{e['recall_at_10_card_cpu_queries']:.4f} CPU plain (card-built file) "
+            f"{e['recall_at_10_cpu']:.4f}, ids equal {e['ids_equal_cpu']:.4%}, probe sets "
+            f"differing {probe_diff}; scores = full scan's "
+            f"{e.get('scores_equal_full_scan', 'n/a')}; launches {got}")
+        expect(kernels_ok, f"ivf nprobe={nprobe}: launches {got}")
+        expect(abs(e["recall_at_10_card_cpu_queries"] - e["recall_at_10_cpu"]) <= 0.01,
+               f"ivf nprobe={nprobe}: recall vs the CPU plain path")
+        expect(e["ids_equal_cpu"] >= 0.99, f"ivf nprobe={nprobe}: ids differ from the CPU "
+                                           "in over 1%")
+        out["ivf"][nprobe] = e
+    del full_scores, cpu_ivf
+
+    ivf2 = MonaVec.build(corpus, bits=2, **ivf_kw)
+    (s2, i2), got = launched(lambda: run(ivf2, {"nprobe": 16}))
+    out["ivf_2bit"] = {"launches": got, "recall_at_10": recall(i2, exact)}
+    say(f"ivf 2-bit nprobe=16: recall@10 {out['ivf_2bit']['recall_at_10']:.4f}; launches {got}")
+    expect(got["gather_crumb_dot"] > 0 and got["crumb_dot"] == 0 and got["fwht"] > 0,
+           f"ivf 2-bit: launches {got}")
+
+    # IVF with where=, on the same lists (a handle sharing the backend).
+    ivfm = MonaVec(ivf.backend, meta=MetaStore.build(cols, N))
+    for name in ("eq_lang", "price_or_lang"):
+        p = preds[name]
+        mask = pr.evaluate(p, ivfm.meta)
+        s_f, i_f = run(ivfm, {"nprobe": 16, "where": p})
+        oracle = run(ivfm, {"nprobe": 16, "allow": Allowlist(mask=mask,
+                                                              n_allowed=int(mask.sum()))})
+        real = i_f[i_f != SENTINEL_ID].astype(np.int64)
+        ok = bool(mask[real].all()) and same((s_f, i_f), oracle)
+        say(f"ivf nprobe=16 where={name}: only admissible ids, = allowlist oracle: {ok}")
+        expect(ok, f"ivf where={name}: an inadmissible id or not the oracle's bytes")
+    out["engine_ivf"] = engine_checks("ivf nprobe=8", ivf, {"nprobe": 8}, queries)
+
+    # Mixed traffic through one index each: no capture after the warm-up.
+    mixed = [(fflat, {}), (fflat, {"where": preds["eq_lang"]}), (ivf, {"nprobe": 8}),
+             (ivf, {"nprobe": 16})]
+    qb = queries[:64]
+    for index, kw in mixed:
+        index.search(qb, k=10, **kw)
+    cache = engine.plan_cache()
+    before = cache.stats.snapshot()
+    for _ in range(3):
+        for index, kw in mixed:
+            index.search(qb, k=10, **kw)
+    delta = cache.stats.since(before)
+    out["mixed_traffic"] = {"captures": delta.captures, "misses": delta.misses,
+                            "graphs_held": [len(fflat.backend.graphs), len(ivf.backend.graphs)]}
+    say(f"mixed traffic (full, filtered full, ivf nprobe 8, ivf nprobe 16) x 3 after a warm-up: "
+        f"captures {delta.captures}, new plans {delta.misses}; graphs held "
+        f"{out['mixed_traffic']['graphs_held']}")
+    expect(delta.captures == 0 and delta.misses == 0, "mixed traffic recaptured a graph")
+
+    # 7c: IVF latency, and the rescores at IVF's candidate width.
+    for nprobe in (8, 16):
+        lat = batch_latencies(lambda qb_: ivf.search(qb_, k=10, nprobe=nprobe), queries, 100)
+        dev_ms = graph_device_ms(torch, ivf, {"nprobe": nprobe}, queries)
+        out["timing"][f"ivf_{nprobe}"] = {"latency": lat, "graph_device_ms": dev_ms,
+                                          "idle_share_estimate":
+                                          max(0.0, 1 - dev_ms / lat["median_ms"])}
+        say(f"ivf timing nprobe={nprobe}: batch median {lat['median_ms']:.4f} ms p90 "
+            f"{lat['p90_ms']:.4f} ms, {lat['qps']:.1f} queries/s; graph device {dev_ms:.4f} ms; "
+            f"idle share estimate {max(0.0, 1 - dev_ms / lat['median_ms']):.3f}")
+    d_pad = be.enc.dim_pad
+    for bits, index, nprobes, kernel in ((4, ivf, (8, 16), c.gather_nibble_dot_cuda),
+                                         (2, ivf2, (16,), c.gather_crumb_dot_cuda)):
+        b_ = index.backend
+        q_rot = qz.encode_query(qt[:64], b_.enc).contiguous()
+        for nprobe in nprobes:
+            m = b_.max_candidates(nprobe)
+            probe = scoring.topk(ivf_mod.probe_scores(q_rot, b_.centroids, "cosine"), nprobe)[1]
+            cand = ivf_mod.candidates(probe, b_.order_t, b_.offsets_t, max(m, 10))
+            cand32 = cand.to(torch.int32).contiguous()
+            unpack = qz.unpack_4bit if bits == 4 else qz.unpack_2bit
+            rows_f32 = lloydmax.dequantize(unpack(b_.enc.packed[cand.clamp(min=0)]), bits)
+            run_k = lambda: kernel(b_.enc.packed, q_rot, cand32)
+            bmm = lambda: torch.bmm(rows_f32, q_rot[:, :, None])
+            n_valid = int((cand >= 0).sum())
+            bnd, by, n_rows = gathered_bound_ms(torch, cand32, d_pad, bits)
+            e = {"m": m, "valid_candidates": n_valid, "distinct_rows": n_rows,
+                 "kernel": c.time_ms(run_k),
+                 "b2b": c.time_ms(run_k, reps=c.B2B), "device_ms": c.device_ms(run_k),
+                 "library": c.time_ms(bmm), "library_device_ms": c.device_ms(bmm),
+                 "bound_ms": bnd, "bound_by": by}
+            say(f"rescore {kernel.__name__} at ivf nprobe={nprobe} (b=64, m={m}, "
+                f"{n_valid} valid, {n_rows} distinct rows): one launch {e['kernel']['median']:.4f} ms, back-to-back "
+                f"{e['b2b']['median']:.4f} ms, device {e['device_ms']:.4f} ms "
+                f"({bnd / e['device_ms']:.1%} of the bound); bmm of the pre-gathered rows "
+                f"{e['library']['median']:.4f} / {e['library_device_ms']:.4f} ms; bound "
+                f"{bnd:.4f} ms ({by})")
+            out["timing"][f"rescore_{bits}bit_ivf_{nprobe}"] = e
+            del rows_f32, bmm
+    del ivf2
+    torch.cuda.empty_cache()
+
+    # The IVF lifecycle: add rows, delete ids, search (the extras merged),
+    # v8 round trip, compact.
+    ivf.add(added)
+    ivf_ids = ivf.ids
+    dead = ivf_ids[::(N + FILTER_ADD) // FILTER_DELETE][:FILTER_DELETE]
+    n_dead = ivf.delete(dead)
+    (s_m, i_m), got = launched(lambda: run(ivf, {"nprobe": 16}))
+    no_dead = not np.isin(i_m, dead).any()
+    # The merge is exact: no live extra row left out scores above the
+    # lowest score returned.
+    extra = ivf.mut.extras[0]
+    side = torch.cat([ops.score_packed(qz.encode_query(qt[64 * i: 64 * (i + 1)], extra.enc),
+                                       extra.enc) for i in range(BATCHES)]).cpu().numpy()
+    side[:, extra.tombs] = -np.inf
+    returned = np.zeros_like(side, dtype=bool)
+    rows_b, cols_b = np.nonzero((i_m >= N) & (i_m != SENTINEL_ID))
+    returned[rows_b, (i_m[rows_b, cols_b] - N).astype(np.int64)] = True
+    left_out = np.where(returned, -np.inf, side).max(axis=1)
+    merged = bool((left_out <= s_m[:, -1]).all()) and bool(returned.any())
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tdir:
+        path = Path(tdir) / "ivf-v8.mvec"
+        ivf.save(str(path))
+        back = MonaVec.load(str(path))
+        v8_ok = path.read_bytes()[4] == 8 and same(back.search(queries[:64], k=10, nprobe=16),
+                                                   (s_m[:64], i_m[:64]))
+        again = Path(tdir) / "again.mvec"
+        back.save(str(again))
+        v8_ok = v8_ok and again.read_bytes() == path.read_bytes()
+        del back
+    reclaimed = ivf.compact()
+    c_ids = run(ivf, {"nprobe": 16})[1]
+    compact_ok = (reclaimed == FILTER_DELETE and ivf.backend.nlist == IVF_NLIST
+                  and ivf.mut.is_static and not np.isin(c_ids, dead).any())
+    c_recall = recall(c_ids, exact_ids(~np.isin(np.arange(N + FILTER_ADD), dead)))
+    say(f"ivf lifecycle: add {FILTER_ADD}, delete {n_dead}; nprobe=16 launches {got}; no "
+        f"tombstoned id {no_dead}; extras merged exactly {merged}; v8 save -> load -> search "
+        f"and -> save byte-identical {v8_ok}; compact reclaimed {reclaimed}, "
+        f"{ivf.backend.nlist} cells, recall@10 after {c_recall:.4f}")
+    expect(n_dead == FILTER_DELETE and no_dead and merged and v8_ok and compact_ok,
+           "ivf lifecycle: a check failed")
+    expect(got["nibble_dot"] > 0 and got["gather_nibble_dot"] > 0,
+           f"ivf lifecycle: launches {got}")
+    out["ivf_lifecycle"] = {"deleted": n_dead, "launches": got, "no_tombstoned_id": no_dead,
+                            "merged_exactly": merged, "v8_round_trip": v8_ok,
+                            "compact_reclaimed": reclaimed, "compact_recall_at_10": c_recall}
+    del ivf, ivfm, fflat, fsign, exact_all
+    torch.cuda.empty_cache()
+
+    # 7c: IVF at 1,000,000 rows, random codes in balanced random cells: timing only.
+    big_rng = np.random.default_rng(SEED + 9)
+    cents = big_rng.standard_normal((IVF_BIG_NLIST, DIM), dtype=np.float32)
+    cents /= np.linalg.norm(cents, axis=1, keepdims=True)
+    big = ivf_from_arrays(
+        big_rng.integers(0, 256, size=(BIG_N, DIM // 2), dtype=np.uint8),
+        np.ones(BIG_N, np.float32), ids=np.arange(BIG_N, dtype=np.uint64), centroids=cents,
+        order=big_rng.permutation(BIG_N),
+        offsets=np.linspace(0, BIG_N, IVF_BIG_NLIST + 1).astype(np.int64),
+        nlist=IVF_BIG_NLIST, seed=SEED, metric="cosine", bits=4, dim=DIM, dim_pad=DIM)
+    big_q = big_rng.standard_normal((64 * BATCHES, DIM), dtype=np.float32)
+    lat = batch_latencies(lambda qb_: big.search(qb_, k=10, nprobe=IVF_BIG_NPROBE), big_q,
+                          BIG_BATCHES)
+    dev_ms = graph_device_ms(torch, big, {"nprobe": IVF_BIG_NPROBE}, big_q)
+    out["timing"]["ivf_1m"] = {"latency": lat, "graph_device_ms": dev_ms,
+                               "max_candidates": big.backend.max_candidates(IVF_BIG_NPROBE)}
+    say(f"ivf n={BIG_N} nlist={IVF_BIG_NLIST} nprobe={IVF_BIG_NPROBE} (m "
+        f"{big.backend.max_candidates(IVF_BIG_NPROBE)}): batch median {lat['median_ms']:.4f} ms "
+        f"p90 {lat['p90_ms']:.4f} ms over {lat['batches']} batches of 64; graph device "
+        f"{dev_ms:.4f} ms")
+    del big
+    torch.cuda.empty_cache()
+    say(f"phase 7b: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -1577,15 +2088,15 @@ def main() -> int:
             rows_f32 = lloydmax.dequantize(unpack(packed[cand.long()]), bits)
             bmm = lambda: torch.bmm(rows_f32, qr[:, :, None])
             run = lambda: kernel(packed, qr, cand)
-            bnd, by = bound_ms(nbytes=b * m * d_pad * bits / 8 + 4.0 * b * d_pad + 8.0 * b * m
-                               + 4 * 2 ** bits, ops=2.0 * b * m * d_pad)
-            e = {"kernel": time_ms(run), "b2b": time_ms(run, reps=B2B),
+            bnd, by, n_rows = gathered_bound_ms(torch, cand, d_pad, bits)
+            e = {"distinct_rows": n_rows, "kernel": time_ms(run), "b2b": time_ms(run, reps=B2B),
                  "device_ms": device_ms(run),
                  "plain": time_ms(lambda: plain(packed, qr, cand), iters=20),
                  "library": time_ms(bmm), "library_b2b": time_ms(bmm, reps=B2B),
                  "library_device_ms": device_ms(bmm), "bound_ms": bnd, "bound_by": by,
                  "chain_floor_ms": chain_floor_ms}
-            line = (f"rescore {kernel.__name__} m={m}: one launch {e['kernel']['median']:.4f} "
+            line = (f"rescore {kernel.__name__} m={m} ({n_rows} distinct rows): one launch "
+                    f"{e['kernel']['median']:.4f} "
                     f"ms, back-to-back {e['b2b']['median']:.4f} ms, device "
                     f"{e['device_ms']:.4f} ms; bmm yardstick {e['library']['median']:.4f} / "
                     f"{e['library_b2b']['median']:.4f} / {e['library_device_ms']:.4f} ms; "
@@ -1886,6 +2397,21 @@ def main() -> int:
     report["lifecycle"] = lifecycle_phase(torch, np, dev, corpus, queries, say, expect)
     torch.cuda.empty_cache()
     say(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 7. metadata, where= predicates, IVF ----------------------------------
+    # The earlier phases' indexes go first, and their graphs with them.
+    del idx, cascades, precision_idx, precision_cascade, paths
+    cidx = pidx = index = big_c = loaded = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    report["filter_ivf"] = filter_ivf_phase(SimpleNamespace(
+        torch=torch, np=np, dev=dev, corpus=corpus, queries=queries, expect=expect, say=say,
+        reset_counts=reset_counts, read_counts=read_counts, time_ms=time_ms,
+        device_ms=device_ms, B2B=B2B, gather_nibble_dot_cuda=gather_nibble_dot_cuda,
+        gather_crumb_dot_cuda=gather_crumb_dot_cuda))
+    torch.cuda.empty_cache()
+    say(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [
         {"name": "nibble_dot", "route": "cuda",

@@ -1,16 +1,18 @@
-"""Build the port's ``Encoded`` and a segmented ``MonaVec`` from plain arrays.
+"""Build the port's ``Encoded``, metadata columns and a segmented
+``MonaVec`` (BruteForce or IVF) from plain arrays.
 
 The fields of an encoded corpus (packed codes, norms, seed, shape
 metadata and, for a mixed corpus, its 4/2 split and permutation) are the
-"weights" of this system, and a mutated index adds per-segment ids,
-tombstones and the next segment ordinal.  Taking them as numpy arrays lets
-one index, for example the reference's mutated ``MonaVec``, feed both
-packages without going through a file.
+"weights" of this system; a mutated index adds per-segment ids, tombstones
+and the next segment ordinal, an IVF index its centroids and CSR lists, and
+an index with metadata its columns and vocabularies.  Taking them as numpy
+arrays lets one index, for example the reference's mutated ``MonaVec``,
+feed both packages with the same bytes without going through a file.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +72,38 @@ def encoded_from_arrays(
     )
 
 
+def meta_from_arrays(columns: Mapping[str, Tuple[str, np.ndarray, Optional[Sequence[str]]]]):
+    """A ``MetaStore`` of columns given as ``{name: (kind, values, vocab)}``
+    in schema order: kind "i64", "f64" or "str", the values (int32 codes
+    for str) and the str column's vocabulary (None otherwise), taken as
+    they are, so the values and vocabularies keep their bytes."""
+    import collections
+
+    from . import metadata as md
+
+    cols = collections.OrderedDict()
+    for name, (kind, values, vocab) in columns.items():
+        if kind not in md.KINDS:
+            raise ValueError(f"metadata column {name!r}: unknown kind {kind!r}")
+        values = np.ascontiguousarray(np.asarray(values).astype(
+            {md.KIND_I64: np.int64, md.KIND_F64: np.float64, md.KIND_STR: np.int32}[kind]))
+        if values.ndim != 1:
+            raise ValueError(f"metadata column {name!r} must be 1-D, got {values.shape}")
+        if (vocab is None) != (kind != md.KIND_STR):
+            raise ValueError(f"metadata column {name!r}: a vocabulary goes with kind 'str' "
+                             f"and only with it")
+        if kind == md.KIND_F64 and np.isnan(values).any():
+            raise ValueError(f"metadata column {name!r} contains NaN")
+        if kind == md.KIND_STR and values.size and (values.min() < 0
+                                                    or values.max() >= len(vocab)):
+            raise ValueError(f"metadata column {name!r}: a code is outside the vocabulary")
+        cols[name] = md.Column(kind=kind, values=values,
+                               vocab=None if vocab is None else list(vocab))
+    if len({c.n for c in cols.values()}) > 1:
+        raise ValueError("metadata columns differ in length")
+    return md.MetaStore(columns=cols)
+
+
 def segmented_from_arrays(
     segments: Sequence[dict],
     *,
@@ -83,15 +117,21 @@ def segmented_from_arrays(
     std_mean: Optional[float] = None,
     std_inv_std: Optional[float] = None,
     coarse: Optional[str] = None,
+    ivf: Optional[dict] = None,
+    meta=None,
     device: torch.device | str = "cuda",
 ):
     """A ``MonaVec`` over segments given base first, each a dict of
     ``packed``, ``qnorms``, ``seed``, ``ids`` and ``tombs`` ([n] bool); with
-    ``coarse`` every segment derives its coarse code from its codes."""
+    ``coarse`` every segment derives its coarse code from its codes.  With
+    ``ivf`` (a dict of ``centroids`` [nlist, d'] f32, ``order`` [n], ``offsets``
+    [nlist + 1] and ``nlist``) the base is an IVF index over those lists;
+    ``meta`` is a ``MetaStore`` over every segment's rows."""
     from . import binary
     from . import segments as seg
     from .api import MonaVec
     from .bruteforce import BruteForceIndex
+    from .ivf import IvfFlatIndex
 
     if not segments:
         raise ValueError("segments must hold at least the base segment")
@@ -116,4 +156,40 @@ def segmented_from_arrays(
     state = seg.SegmentedState(
         base_tombs=tombs0, next_ordinal=int(next_ordinal),
         extras=[seg.Segment(enc=e, ids=i, tombs=t) for e, i, t in extras])
-    return MonaVec(BruteForceIndex(enc=enc0, ids=ids0), mut=state)
+    if ivf is None:
+        backend = BruteForceIndex(enc=enc0, ids=ids0)
+    else:
+        if coarse is not None:
+            raise ValueError("coarse codes belong to the bruteforce index")
+        nlist = int(ivf["nlist"])
+        cents = np.asarray(ivf["centroids"], dtype=np.float32)
+        order = np.asarray(ivf["order"], dtype=np.int64)
+        offsets = np.asarray(ivf["offsets"], dtype=np.int64)
+        if cents.shape != (nlist, dim_pad) or offsets.shape != (nlist + 1,):
+            raise ValueError(f"centroids must be [{nlist}, {dim_pad}] and offsets "
+                             f"[{nlist + 1}], got {cents.shape} and {offsets.shape}")
+        if (not np.array_equal(np.sort(order), np.arange(enc0.n)) or offsets[0] != 0
+                or offsets[-1] != enc0.n or (np.diff(offsets) < 0).any()):
+            raise ValueError("order must permute the base rows and offsets run from 0 "
+                             "to n, non-decreasing")
+        backend = IvfFlatIndex(enc=enc0, ids=ids0, centroids=torch.from_numpy(cents.copy()),
+                               order=order, offsets=offsets, nlist=nlist)
+    if meta is not None and meta.n_rows != sum(e.n for e, _, _ in parts):
+        raise ValueError(f"metadata has {meta.n_rows} rows but the segments "
+                         f"{sum(e.n for e, _, _ in parts)}")
+    return MonaVec(backend, mut=state, meta=meta)
+
+
+def ivf_from_arrays(packed: np.ndarray, qnorms: np.ndarray, *, ids: np.ndarray,
+                    centroids: np.ndarray, order: np.ndarray, offsets: np.ndarray,
+                    nlist: int, seed: int, metric: str, bits: int, dim: int, dim_pad: int,
+                    std_mean: Optional[float] = None, std_inv_std: Optional[float] = None,
+                    meta=None, device: torch.device | str = "cuda"):
+    """A static IVF ``MonaVec`` over an encoded corpus and its lists."""
+    return segmented_from_arrays(
+        [{"packed": packed, "qnorms": qnorms, "seed": seed, "ids": ids,
+          "tombs": np.zeros(np.asarray(packed).shape[0], dtype=bool)}],
+        next_ordinal=1, metric=metric, bits=bits, dim=dim, dim_pad=dim_pad,
+        std_mean=std_mean, std_inv_std=std_inv_std, meta=meta,
+        ivf={"centroids": centroids, "order": order, "offsets": offsets, "nlist": nlist},
+        device=device)

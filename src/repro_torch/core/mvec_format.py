@@ -1,11 +1,12 @@
-"""`.mvec` single-file index format, versions 6, 7, 8 and 10 (subset of
+"""`.mvec` single-file index format, versions 6 to 10 (subset of
 ``repro/core/mvec_format.py``; paper §3.8, DESIGN.md §2, §6 and §11).
 
 A fixed 56-byte little-endian header, then length-prefixed blocks:
 
     0   MAGIC       4s   b"MVEC"
     4   VERSION     u32  6, 7 (a permutation block), 8 (segments and
-                         tombstones) or 10 (coarse codes)
+                         tombstones), 9 (metadata columns) or 10 (coarse
+                         codes)
     8   DIM         u32  input dimension d
     12  METRIC      u8   0=Cosine 1=Dot 2=L2
     13  BIT_WIDTH   u8   2, 3 (mixed 4/2) or 4
@@ -19,11 +20,12 @@ A fixed 56-byte little-endian header, then length-prefixed blocks:
     45  HAS_PERM    u8   v8 and later: 1 if the PERM block follows (v7 says
                          so through VERSION; always 0 in v6 and v7)
     46  COARSE_KIND u8   v10: 1=sign 2=crumb (0 before version 10)
-    47  HAS_META    u8   v10: 1 if metadata columns follow (ROADMAP A6)
+    47  HAS_META    u8   v10: 1 if the metadata column table follows (v9
+                         says so through VERSION)
     48  (8 bytes)        zero
 
 Blocks: STD_MEAN [f32 x dim] and STD_INV_STD [f32 x dim] (if HAS_STD), PERM
-[i32 x d'] (v7, or v8/v10 with HAS_PERM), then VECTORS [u8], IDS [u64], NORMS
+[i32 x d'] (v7, or v8-v10 with HAS_PERM), then VECTORS [u8], IDS [u64], NORMS
 [f32] (each with a u64 byte length), then INDEX_DATA (u64 length + bytes).
 A row of VECTORS is d'/2 bytes (4-bit), d'/4 (2-bit), or N4_DIMS/2 +
 (d'-N4_DIMS)/4 (mixed).  Version 8 appends the segment table:
@@ -34,20 +36,34 @@ A row of VECTORS is d'/2 bytes (4-bit), d'/4 (2-bit), or N4_DIMS/2 +
     per segment INCLUDING the base, in order:
         TOMBS      [u8]          np.packbits deletion bitmap (bit set = dead)
 
-Version 10 writes the v8 body (SEG_COUNT may be 0 and every bitmap clear),
-then one CODE block [u8, n x code_bytes] per segment, base first.  ``save``
-picks the version as the reference does: 10 with coarse codes, else 8 when
-the index has extra segments or a tombstone, else 7 with a permutation, else
-6; so a static or compacted index still writes v6/v7.  Every read is checked
-against the bytes present, so a truncated or garbage-tailed file raises
-ValueError naming the block.  A file the port cannot represent raises
-NotImplementedError naming the ROADMAP item: version 9 and a v10 file with
-metadata columns (A6), version 11 (A11).  IVF and HNSW files load here as
-plain data (``index_data``; ``unpack_ivf_blob``), their search is A7 and A8.
+Version 9 (an index with metadata columns and no coarse codes) writes the
+v8 body (SEG_COUNT may be 0 and every bitmap clear), then the metadata
+column table:
+
+    COL_COUNT  u32               number of columns (>= 1)
+    per column, in schema order:
+        NAME       str           u32 byte length + utf-8 bytes
+        KIND       u8            0=i64 1=f64 2=str (interned enum)
+        VOCAB      (str only)    u32 entry count, then that many strs
+        per segment INCLUDING the base, in order:
+            VALUES [i64|f64|i32] the segment's rows (i32 = vocab codes)
+
+Version 10 writes the v8 body, the metadata column table if HAS_META, then
+one CODE block [u8, n x code_bytes] per segment, base first.  ``save``
+picks the version as the reference does: 10 with coarse codes, else 9 with
+metadata columns, else 8 when the index has extra segments or a tombstone,
+else 7 with a permutation, else 6; so a static or compacted index still
+writes v6/v7.  Every read is checked against the bytes present, so a
+truncated or garbage-tailed file raises ValueError naming the block.
+Version 11 (autotune results) raises NotImplementedError naming ROADMAP
+A11.  An IVF index's centroids and lists are its INDEX_DATA
+(``pack_ivf_blob``); an HNSW file loads here as plain data, its index is
+A8.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import io
 import struct
@@ -56,6 +72,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import metadata as md
 from . import quantize as qz
 from .binary import code_bytes
 from .rhdh import next_pow2
@@ -67,10 +84,13 @@ HEADER_FMT = "<4sIIBBBBQQIIIBB10s"
 VERSION = 6
 VERSION_PERM = 7
 VERSION_SEGMENTS = 8
+VERSION_META = 9
 VERSION_COARSE = 10
+_READS = (VERSION, VERSION_PERM, VERSION_SEGMENTS, VERSION_META, VERSION_COARSE)
 _COARSE_CODE = {"sign": 1, "crumb": 2}
 _COARSE_NAME = {v: k for k, v in _COARSE_CODE.items()}
-_UNPORTED_VERSION = {9: "A6: metadata columns", 11: "A11: autotune results"}
+_UNPORTED_VERSION = {11: "A11: autotune results"}
+_META_DTYPE = {md.KIND_I64: np.int64, md.KIND_F64: np.float64, md.KIND_STR: np.int32}
 _METRIC_CODE = {COSINE: 0, DOT: 1, L2: 2}
 _METRIC_NAME = {v: k for k, v in _METRIC_CODE.items()}
 INDEX_BRUTEFORCE, INDEX_IVF, INDEX_HNSW = 0, 1, 2
@@ -80,6 +100,12 @@ def _write_array(buf: io.BytesIO, arr: np.ndarray) -> None:
     """Length-prefixed raw little-endian block."""
     raw = np.ascontiguousarray(arr).astype(arr.dtype.newbyteorder("<")).tobytes()
     buf.write(struct.pack("<Q", len(raw)))
+    buf.write(raw)
+
+
+def _write_str(buf: io.BytesIO, s: str) -> None:
+    raw = s.encode("utf-8")
+    buf.write(struct.pack("<I", len(raw)))
     buf.write(raw)
 
 
@@ -105,6 +131,16 @@ class _Reader:
 
     def u64(self, name: str) -> int:
         return struct.unpack("<Q", self.take(8, name))[0]
+
+    def u8(self, name: str) -> int:
+        return self.take(1, name)[0]
+
+    def str_(self, name: str) -> str:
+        nbytes = self.u32(f"{name} length")
+        try:
+            return self.take(nbytes, name).decode("utf-8")
+        except UnicodeDecodeError as e:
+            raise ValueError(f".mvec corrupt block {name!r}: invalid utf-8 ({e})") from None
 
     def array(self, dtype, name: str, count: Optional[int] = None) -> np.ndarray:
         nbytes = self.u64(f"{name} length")
@@ -143,6 +179,7 @@ class MvecFile:
     index_param2: int = 0
     extras: List[ExtraSegment] = dataclasses.field(default_factory=list)
     tombs: Optional[List[np.ndarray]] = None   # [1 + len(extras)] bool bitmaps
+    meta: Optional[md.MetaStore] = None        # per-row metadata columns (v9, v10)
 
 
 def _host(t: torch.Tensor, dtype) -> np.ndarray:
@@ -150,9 +187,9 @@ def _host(t: torch.Tensor, dtype) -> np.ndarray:
 
 
 def save(path: str, f: MvecFile) -> None:
-    """Write version 10 when the segments carry coarse codes, else 8 when
-    there is an extra segment or a tombstone, else 7 with a permutation,
-    else 6."""
+    """Write version 10 when the segments carry coarse codes, else 9 with
+    metadata columns, else 8 when there is an extra segment or a tombstone,
+    else 7 with a permutation, else 6."""
     enc = f.enc
     seg_encs = [enc] + [e.enc for e in f.extras]
     with_codes = [e.ccodes is not None for e in seg_encs]
@@ -163,8 +200,15 @@ def save(path: str, f: MvecFile) -> None:
     if has_codes and any(e.coarse != enc.coarse for e in seg_encs):
         raise ValueError("segments disagree on the coarse-code kind")
     mutated = bool(f.extras) or (f.tombs is not None and any(t.any() for t in f.tombs))
+    has_meta = f.meta is not None and bool(f.meta)
+    seg_rows = [e.n for e in seg_encs]
+    if has_meta and f.meta.n_rows != sum(seg_rows):
+        raise ValueError(f"metadata has {f.meta.n_rows} rows but the index has "
+                         f"{sum(seg_rows)}")
     if has_codes:
         version = VERSION_COARSE
+    elif has_meta:
+        version = VERSION_META
     elif mutated:
         version = VERSION_SEGMENTS
     else:
@@ -177,7 +221,8 @@ def save(path: str, f: MvecFile) -> None:
         enc.n, enc.seed & 0xFFFFFFFFFFFFFFFF,
         enc.n4_dims, f.index_param, f.index_param2,
         1 if has_std else 0, 1 if (has_perm and version >= 8) else 0,
-        bytes([_COARSE_CODE[enc.coarse] if has_codes else 0, 0]) + b"\x00" * 8,
+        bytes([_COARSE_CODE[enc.coarse] if has_codes else 0,
+               1 if (version == VERSION_COARSE and has_meta) else 0]) + b"\x00" * 8,
     )
     buf = io.BytesIO()
     buf.write(header)
@@ -203,6 +248,18 @@ def save(path: str, f: MvecFile) -> None:
         tombs = f.tombs or [np.zeros(e.n, dtype=bool) for e in seg_encs]
         for t in tombs:
             _write_array(buf, np.packbits(np.asarray(t, dtype=bool)))
+    if has_meta:
+        bounds = np.concatenate([[0], np.cumsum(seg_rows)]).tolist()
+        buf.write(struct.pack("<I", len(f.meta.columns)))
+        for name, col in f.meta.columns.items():
+            _write_str(buf, name)
+            buf.write(struct.pack("<B", md.kind_code(col.kind)))
+            if col.kind == md.KIND_STR:
+                buf.write(struct.pack("<I", len(col.vocab)))
+                for entry in col.vocab:
+                    _write_str(buf, entry)
+            for lo, hi in zip(bounds, bounds[1:]):
+                _write_array(buf, np.asarray(col.values[lo:hi], dtype=_META_DTYPE[col.kind]))
     if has_codes:
         for e in seg_encs:
             _write_array(buf, _host(e.ccodes, np.uint8))
@@ -211,8 +268,9 @@ def save(path: str, f: MvecFile) -> None:
 
 
 def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
-    """Parse a version 6, 7, 8 or 10 file; codes, norms and coarse codes of
-    every segment land on ``device``, ids and tombstones stay on the host."""
+    """Parse a version 6 to 10 file; codes, norms and coarse codes of every
+    segment land on ``device``, ids, tombstones and metadata stay on the
+    host."""
     with open(path, "rb") as fh:
         data = fh.read()
     if len(data) < HEADER_LEN:
@@ -226,10 +284,10 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
     if version in _UNPORTED_VERSION:
         raise NotImplementedError(
             f".mvec version {version} is not ported yet (ROADMAP {_UNPORTED_VERSION[version]})"
-            f"; the port reads versions 6, 7, 8 and 10")
-    if version not in (VERSION, VERSION_PERM, VERSION_SEGMENTS, VERSION_COARSE):
+            f"; the port reads versions 6 to 10")
+    if version not in _READS:
         raise ValueError(
-            f"unsupported .mvec version {version}: the port reads versions 6, 7, 8 and 10")
+            f"unsupported .mvec version {version}: the port reads versions 6 to 10")
     if metric_c not in _METRIC_NAME:
         raise ValueError(f".mvec corrupt header: unknown metric code {metric_c}")
     if bits not in qz.BIT_WIDTHS:
@@ -292,9 +350,9 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
         for i, n_rows in enumerate([int(count)] + [e.ids.shape[0] for e in extras]):
             packed_bits = rd.array(np.uint8, f"tombstones[{i}]", count=(n_rows + 7) // 8)
             tombs.append(np.unpackbits(packed_bits)[:n_rows].astype(bool))
-    if version == VERSION_COARSE and tail[1]:
-        raise NotImplementedError(".mvec metadata columns are not ported yet "
-                                  "(ROADMAP A6: metadata columns)")
+    meta = None
+    if version == VERSION_META or (version == VERSION_COARSE and tail[1]):
+        meta = _read_meta(rd, [int(count)] + [e.ids.shape[0] for e in extras])
     if coarse is not None:
         cb = code_bytes(dim_pad, coarse)
         seg_codes = []
@@ -307,7 +365,37 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
     rd.expect_eof()
     return MvecFile(enc=enc, ids=ids, index_type=int(index_type),
                     index_param=int(index_param), index_data=blob,
-                    index_param2=int(param2), extras=extras, tombs=tombs)
+                    index_param2=int(param2), extras=extras, tombs=tombs, meta=meta)
+
+
+def _read_meta(rd: _Reader, seg_rows: List[int]) -> md.MetaStore:
+    """The metadata column table, every column's segments concatenated."""
+    n_cols = rd.u32("metadata column table")
+    if n_cols == 0:
+        raise ValueError(".mvec corrupt block 'metadata column table': the metadata "
+                         "column table requires at least one column")
+    cols: "collections.OrderedDict[str, md.Column]" = collections.OrderedDict()
+    for ci in range(n_cols):
+        name = rd.str_(f"column[{ci}] name")
+        if not name or name in cols:
+            raise ValueError(f".mvec corrupt block 'column[{ci}] name': empty or duplicate "
+                             f"column name {name!r}")
+        kind = md.kind_name(rd.u8(f"column[{ci}] kind"))
+        vocab = None
+        if kind == md.KIND_STR:
+            vocab = [rd.str_(f"column[{ci}] vocab[{vi}]")
+                     for vi in range(rd.u32(f"column[{ci}] vocab count"))]
+        blocks = [rd.array(_META_DTYPE[kind], f"column[{ci}] segment[{si}] values", count=n)
+                  for si, n in enumerate(seg_rows)]
+        values = np.ascontiguousarray(np.concatenate(blocks).astype(_META_DTYPE[kind]))
+        if kind == md.KIND_STR and values.size and (values.min() < 0
+                                                    or values.max() >= len(vocab)):
+            raise ValueError(f".mvec corrupt block 'column[{ci}]': code out of vocabulary "
+                             f"range (vocab has {len(vocab)} entries)")
+        if kind == md.KIND_F64 and np.isnan(values).any():
+            raise ValueError(f".mvec corrupt block 'column[{ci}]': NaN in f64 column")
+        cols[name] = md.Column(kind=kind, values=values, vocab=vocab)
+    return md.MetaStore(columns=cols)
 
 
 # ---------------------------------------------------------------------------

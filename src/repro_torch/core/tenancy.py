@@ -103,7 +103,7 @@ class TenantRegistry:
         The returned Searcher carries ``{namespace, collection}`` metric
         labels, so each call lands in the per-namespace
         ``tenancy.search_us`` latency histogram (DESIGN.md §9).  ``where=``
-        (metadata predicates) is ROADMAP A6."""
+        binds a metadata predicate into every call."""
         ns = self.resolve_namespace(token)   # get() below re-checks + counts
         searcher = self.get(token, name).searcher(k=k, where=where, **knobs)
         searcher.labels = (("namespace", ns), ("collection", name))

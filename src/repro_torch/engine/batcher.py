@@ -2,10 +2,12 @@
 ``repro/engine/batcher.py``; DESIGN.md §7).
 
 Requests arriving across calls (and across tenants) are queued, coalesced
-per **(namespace, collection, k, knobs)** group, and executed as ONE
+per **(namespace, collection, k, where, knobs)** group, and executed as ONE
 bucketed plan call per group, so ten 3-query requests cost one replay of
-the 32-row bucket's graph instead of ten.  ``where=`` predicates are
-ROADMAP A6 and ``text=`` (hybrid) requests A10; both raise at ``submit``.
+the 32-row bucket's graph instead of ten.  Predicates are frozen (hashable):
+equal predicates coalesce into one group, and two of one structure with
+other constants form two groups that share one plan and one graph.
+``text=`` (hybrid) requests are ROADMAP A10 and raise at ``submit``.
 
 Because a bucketed plan run returns the same bytes as a direct search
 (plan.py), coalescing is invisible to callers: every request gets exactly
@@ -69,13 +71,14 @@ class Ticket:
 
 @dataclasses.dataclass
 class _Group:
-    """One coalescible (namespace, collection, k, knobs) stream."""
+    """One coalescible (namespace, collection, k, where, knobs) stream."""
 
     token: Optional[str]          # any token resolving to this namespace
     namespace: str                # resolved at submit — metric label only
     collection: str
     k: int
     knobs: tuple
+    where: object = None          # a predicate.Predicate, or None
     queries: List[np.ndarray] = dataclasses.field(default_factory=list)
     tickets: List[Ticket] = dataclasses.field(default_factory=list)
 
@@ -111,10 +114,8 @@ class MicroBatcher:
         """Queue one request; auth AND collection existence resolve NOW
         (401 = PermissionError, missing collection = KeyError, both here,
         never poisoning other tenants' flush).  Execution happens at the
-        next ``flush()``."""
-        if where is not None:
-            raise NotImplementedError("where= (metadata predicates) is not ported yet "
-                                      "(ROADMAP A6)")
+        next ``flush()``.  ``where=`` is a metadata predicate, bound into
+        the group's search."""
         if text is not None:
             raise NotImplementedError("text= (hybrid search) is not ported yet "
                                       "(ROADMAP A10)")
@@ -123,12 +124,12 @@ class MicroBatcher:
             raise PermissionError("401: token rejected")
         self.registry.get(token, collection)    # missing collection: raise now
         q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        key = (ns, collection, k, tuple(sorted(knobs.items())))
+        key = (ns, collection, k, where, tuple(sorted(knobs.items())))
         group = self._groups.get(key)
         if group is None:
             group = self._groups[key] = _Group(
                 token=token, namespace=ns, collection=collection, k=k,
-                knobs=tuple(sorted(knobs.items())))
+                knobs=tuple(sorted(knobs.items())), where=where)
         ticket = Ticket(self)
         group.queries.append(q)
         group.tickets.append(ticket)
@@ -170,7 +171,10 @@ class MicroBatcher:
                 index = self.registry.get(group.token, group.collection)
                 qcat = queries[0] if len(queries) == 1 \
                     else np.concatenate(queries)
-                scores, ids = index.search(qcat, k=group.k, **dict(group.knobs))
+                kw = dict(group.knobs)
+                if group.where is not None:
+                    kw["where"] = group.where
+                scores, ids = index.search(qcat, k=group.k, **kw)
             except Exception as e:  # noqa: BLE001 — re-raised at result()
                 obs.inc("batcher.errors", **labels)
                 for t in tickets:

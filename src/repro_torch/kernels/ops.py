@@ -105,7 +105,7 @@ def crumb_coarse_raw(ccodes: torch.Tensor, qplanes: torch.Tensor) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# Gathered candidate-set scoring (the cascade's rescore; later IVF and HNSW).
+# Gathered candidate-set scoring (the cascade's rescore and IVF's probe scan).
 # ---------------------------------------------------------------------------
 
 def _gathered(bits: int, packed: torch.Tensor, q_rot: torch.Tensor,
@@ -129,18 +129,24 @@ def score_gathered_raw(packed: torch.Tensor, q_rot: torch.Tensor, cand: torch.Te
 
 def score_gathered(packed: torch.Tensor, q_rot: torch.Tensor, cand: torch.Tensor, *,
                    bits: int, n4_dims: int = 0, qnorms: Optional[torch.Tensor] = None,
-                   metric: Optional[str] = None) -> torch.Tensor:
-    """Scores [b, m] for per-query candidate sets, -1 candidates masked to NEG.
+                   metric: Optional[str] = None,
+                   allow_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scores [b, m] for per-query candidate sets, masked to NEG before any
+    top-k: -1 candidates and, with ``allow_mask`` ([n] bool), disallowed rows.
 
-    The scan skips candidates of -1 (their rows are never read) and they come
-    back NEG.  With ``qnorms`` and ``metric`` the scores are metric-adjusted
-    by the same ``adjust_scores`` as the full scan, so a candidate's score
-    equals its full-scan score wherever the raw scores are equal.
+    The scan skips candidates of -1 (their rows are never read); a
+    disallowed row is scored and then masked.  With ``qnorms`` and
+    ``metric`` the scores are metric-adjusted by the same ``adjust_scores``
+    as the full scan, so a candidate's score equals its full-scan score
+    wherever the raw scores are equal.
     """
     valid = cand >= 0
+    rows = cand.clamp(min=0).long()
     scores = score_gathered_raw(packed, q_rot, cand, bits=bits, n4_dims=n4_dims)
     if qnorms is not None:
         if metric is None:
             raise ValueError("metric is required to adjust scores")
-        scores = adjust_scores(scores, qnorms[cand.clamp(min=0).long()], metric)
+        scores = adjust_scores(scores, qnorms[rows], metric)
+    if allow_mask is not None:
+        valid = valid & allow_mask[rows]
     return torch.where(valid, scores, float(NEG))

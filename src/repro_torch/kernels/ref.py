@@ -107,28 +107,27 @@ def crumb_affinity_ref(ccodes: torch.Tensor, qplanes: torch.Tensor) -> torch.Ten
 
 def _gather_dot(packed: torch.Tensor, q_rot: torch.Tensor, cand: torch.Tensor,
                 bits: int) -> torch.Tensor:
+    """[b, m] scores of each query's candidate rows, in fixed 8-query
+    batches: a plain ``bmm`` over all b may split a query's dot another way
+    at another b (on the CPU, one query's product runs across threads), so
+    the batch shape is fixed as ``_chunked_dot`` fixes the full scan's.  The
+    rows are gathered and dequantized a batch at a time, so the [8, m, d']
+    f32 intermediate bounds the memory at any b."""
     n = packed.shape[0]
     valid = (cand >= 0) & (cand < n)
-    rows = packed[cand.long().clamp(0, n - 1)]                       # [b, m, bytes]
-    codes = unpack_4bit(rows) if bits == 4 else unpack_2bit(rows)
-    deq = lloydmax.dequantize(codes, bits)                           # [b, m, d']
-    scores = _chunked_bmm(deq, q_rot)
+    rows = cand.long().clamp(0, n - 1)
+    unpack = unpack_4bit if bits == 4 else unpack_2bit
+    out = []
+    for i in range(0, rows.shape[0], _ROW_CHUNK):
+        r, q = rows[i:i + _ROW_CHUNK], q_rot[i:i + _ROW_CHUNK]
+        deq = lloydmax.dequantize(unpack(packed[r]), bits)           # [<= 8, m, d']
+        pad = _ROW_CHUNK - r.shape[0]
+        if pad:
+            deq = torch.cat([deq, deq.new_zeros((pad,) + tuple(deq.shape[1:]))])
+            q = torch.cat([q, q.new_zeros((pad, q.shape[1]))])
+        out.append(torch.bmm(deq, q[:, :, None])[..., 0][:r.shape[0]])
+    scores = torch.cat(out)
     return torch.where(valid, scores, torch.zeros((), device=scores.device))
-
-
-def _chunked_bmm(deq: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
-    """[b, m, d] x [b, d] -> [b, m] in fixed 8-query batches: a plain
-    ``bmm`` over all b may split a query's dot another way at another b
-    (on the CPU, one query's product runs across threads), so the batch
-    shape is fixed as ``_chunked_dot`` fixes the full scan's."""
-    b = deq.shape[0]
-    pad = (-b) % _ROW_CHUNK
-    if pad:
-        deq = torch.cat([deq, deq.new_zeros((pad,) + tuple(deq.shape[1:]))])
-        q_rot = torch.cat([q_rot, q_rot.new_zeros((pad, q_rot.shape[1]))])
-    out = torch.cat([torch.bmm(deq[i:i + _ROW_CHUNK], q_rot[i:i + _ROW_CHUNK, :, None])[..., 0]
-                     for i in range(0, deq.shape[0], _ROW_CHUNK)])
-    return out[:b]
 
 
 def gather_nibble_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor,

@@ -142,11 +142,29 @@ def test_max_batch_splits_whole_requests():
 
 @pytest.mark.parametrize("what,item", [("where", "A6"), ("text", "A10")])
 def test_unported_requests_raise_at_submit(what, item):
+    """``text=`` raises naming A10 at submit.  ``where=`` (A6) is ported:
+    equal predicates coalesce into one execution, other constants form
+    another group, and each request gets its solo filtered search."""
+    from repro_torch.core.predicate import Eq
+
     rng = np.random.RandomState(47)
-    mb = engine.MicroBatcher(_registry({"a": _vecs(rng, 10)}))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        mb.submit("a", "docs", _vecs(rng, 1), **{what: "x"})
-    assert mb.pending == 0
+    if what == "text":
+        mb = engine.MicroBatcher(_registry({"a": _vecs(rng, 10)}))
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            mb.submit("a", "docs", _vecs(rng, 1), **{what: "x"})
+        assert mb.pending == 0
+        return
+    reg = TenantRegistry()
+    index = MonaVec.build(_vecs(rng, 30), meta={"g": np.arange(30) % 3}, device="cpu")
+    reg.put("a", "docs", index)
+    mb = engine.MicroBatcher(reg)
+    qs = [_vecs(rng, 2) for _ in range(3)]
+    preds = [Eq("g", 1), Eq("g", 1), Eq("g", 2)]
+    tickets = [mb.submit("a", "docs", q, k=4, where=p) for q, p in zip(qs, preds)]
+    assert mb.flush() == 2
+    for q, p, t in zip(qs, preds, tickets):
+        got, want = t.result(), index.search(q, 4, where=p)
+        assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()
 
 
 def test_batcher_and_tenancy_counters_carry_the_reference_names():

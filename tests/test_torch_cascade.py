@@ -558,10 +558,19 @@ def test_reference_v10_loads_in_port_and_saves_its_bytes(kind, tmp_path):
     _compare(idx, RefMonaVec.load(path), _queries(x, 4), 10, 8)
 
 
-def test_golden_v10_with_segments_and_metadata_raises():
-    """Its segments load now; its metadata columns are ROADMAP A6."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        MonaVec.load(os.path.join(GOLDEN, "v10_coarse_bruteforce.mvec"), device="cpu")
+def test_golden_v10_with_segments_and_metadata_raises(tmp_path):
+    """It loads now, metadata columns and all (ROADMAP A6, ported), saves
+    its own bytes, and its cascade searches as the reference's does."""
+    src = os.path.join(GOLDEN, "v10_coarse_bruteforce.mvec")
+    idx, ref = MonaVec.load(src, device="cpu"), RefMonaVec.load(src)
+    assert idx.meta.schema == ref.meta.schema and idx.backend.enc.coarse == "crumb"
+    out = str(tmp_path / "v10.mvec")
+    idx.save(out)
+    assert _sha(out) == _sha(src)
+    from tests.torch_harness import assert_segmented_search_matches
+
+    q = np.random.RandomState(5).randn(3, 16).astype(np.float32)
+    assert_segmented_search_matches(idx, ref, q, 4, rescore_mult=2)
 
 
 @pytest.mark.parametrize("what", ["tombstone", "metadata", "coarse_kind", "perm"])
@@ -586,8 +595,10 @@ def test_v10_the_port_cannot_represent_raises(what, tmp_path):
         assert 56 not in ids.tolist() and ids[6, 0] != SENTINEL_ID
         return
     elif what == "metadata":
+        # HAS_META with no column table: the reader takes the coarse codes
+        # for one and raises the reference's ValueError.
         data[47] = 1
-        err, match = NotImplementedError, "ROADMAP A6"
+        err, match = ValueError, "empty or duplicate column name"
     elif what == "coarse_kind":
         data[46] = 3
         err, match = ValueError, "COARSE_KIND"

@@ -285,18 +285,16 @@ class _FakeGraph:
 
     live: list = []
 
-    def __init__(self, fn, arrays, bucket, dim, n_total, stats):
-        self.fn, self.arrays, self.bucket, self.n_total = fn, arrays, bucket, n_total
+    def __init__(self, plan, call, stats):
+        self.plan, self.arrays, self.segments = plan, call.arrays, call.segments
         stats.captures += 1
         _FakeGraph.live.append(weakref.ref(self))
 
     reads = plan_mod._Graph.reads
 
-    def replay(self, q, b, live):
-        live_t = (torch.ones(self.n_total, dtype=torch.bool) if live is None
-                  else torch.from_numpy(live))
-        vals, pos = self.fn(q, torch.arange(self.bucket) < b, live_t, self.arrays)
-        return vals[:b], pos[:b]
+    def replay(self, call):
+        vals, pos = self.plan.run_eager(call, call.q)
+        return vals[:call.b], pos[:call.b]
 
     @staticmethod
     def alive() -> int:
@@ -391,20 +389,36 @@ def test_counters_carry_the_reference_names():
 @pytest.mark.parametrize("what,item", [("where", "A6"), ("tuned", "A11"),
                                        ("sharded", "A12"), ("observer", "A15")])
 def test_unported_engine_paths_name_their_item(what, item):
+    """Tuned knobs, sharded search and the stage observer raise naming their
+    ROADMAP item.  ``where=`` (A6) is ported: on an index with metadata it
+    equals the search with the predicate's allowlist, through ``search``
+    and through a bound ``searcher``; an index without metadata refuses it."""
+    from repro_torch.core import predicate as tpred
+    from repro_torch.core.allowlist import Allowlist
+
     rng = np.random.RandomState(37)
     idx = _index(rng, 20)
     q = _vecs(rng, 2)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if what == "where":
-            idx.search(q, 3, where=object())
-        elif what == "tuned":
-            engine.search_backend(idx.backend, None, q, 3, tuned=object())
-        elif what == "sharded":
-            engine.search_sharded(idx, q, 3)
-        else:
-            engine.set_stage_observer(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        idx.searcher(k=3, where=object())
+    if what == "where":
+        idx.meta = MonaVec.build(_vecs(rng, 20), meta={"g": np.arange(20) % 3},
+                                 device="cpu").meta
+        p = tpred.Ne("g", 1)
+        mask = tpred.evaluate(p, idx.meta)
+        want = idx.search(q, 3, allow=Allowlist(mask=mask, n_allowed=int(mask.sum())))
+        for got in (idx.search(q, 3, where=p), idx.searcher(k=3, where=p)(q)):
+            assert got[0].tobytes() == want[0].tobytes()
+            assert got[1].tobytes() == want[1].tobytes()
+        idx.meta = None
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            if what == "tuned":
+                engine.search_backend(idx.backend, None, q, 3, tuned=object())
+            elif what == "sharded":
+                engine.search_sharded(idx, q, 3)
+            else:
+                engine.set_stage_observer(None)
+    with pytest.raises(ValueError, match="where= requires an index built with metadata"):
+        idx.searcher(k=3, where=object())(q)
 
 
 def test_knob_errors_match_reference():

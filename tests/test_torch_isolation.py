@@ -48,7 +48,8 @@ def test_port_imports_and_runs_with_jax_blocked():
         "                                 nibble_dot, ops, ref)\n"
         "from repro_torch import obs\n"
         "from repro_torch.engine import batcher, plan\n"
-        "from repro_torch.core import binary, convert, mvec_format, segments, tenancy\n"
+        "from repro_torch.core import (binary, convert, ivf, metadata, mvec_format, predicate,\n"
+        "                              segments, tenancy)\n"
         "from repro_torch.data import synthetic\n"
         "x = synthetic.embedding_corpus(0, 64, 24)\n"
         "s, i = repro_torch.MonaVec.build(x, device='cpu').search(x[:2], 3)\n"
@@ -66,6 +67,10 @@ def test_port_imports_and_runs_with_jax_blocked():
         "assert t.result()[1][0, 0] == 1 and obs.registry().snapshot()['counters']\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
+        "f = repro_torch.MonaVec.build(x, index='ivf', nlist=4, meta={'g': np.arange(64) % 2},\n"
+        "                              device='cpu')\n"
+        "s, i = f.search(x[:2], 3, nprobe=4, where=predicate.Eq('g', 0))\n"
+        "assert i[0, 0] == 0 and (i % 2 == 0).all()\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

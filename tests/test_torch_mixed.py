@@ -511,10 +511,20 @@ def test_v10_with_a_permutation_crosses_both_ways(kind, tmp_path):
     assert a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes()
 
 
-def test_golden_v10_with_segments_and_metadata_still_raises():
-    """Its segments load now; its metadata columns are ROADMAP A6."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        MonaVec.load(os.path.join(GOLDEN, "v10_coarse_bruteforce.mvec"), device="cpu")
+def test_golden_v10_with_segments_and_metadata_still_raises(tmp_path):
+    """It loads now (ROADMAP A6, ported): segments, tombstones, metadata
+    columns and crumb codes as the reference reads them, and its own bytes
+    on save."""
+    src = os.path.join(GOLDEN, "v10_coarse_bruteforce.mvec")
+    idx, ref = MonaVec.load(src, device="cpu"), RefMonaVec.load(src)
+    assert len(idx.mut.extras) == len(ref.mut.extras) == 1
+    assert np.array_equal(idx.mut.base_tombs, ref.mut.base_tombs)
+    for name, col in idx.meta.columns.items():
+        assert col.values.tobytes() == ref.meta[name].values.tobytes()
+        assert col.vocab == ref.meta[name].vocab
+    out = str(tmp_path / "v10.mvec")
+    idx.save(out)
+    assert _sha(out) == _sha(src)
 
 
 def test_from_arrays_checks_what_it_is_given():
