@@ -131,7 +131,34 @@ Phases, in order (any failure exits non-zero and prints no result line):
    device time at nprobe 8 and 16, B4 and B5 at IVF's candidate width
    beside ``bmm`` and the bound; add 2,500 rows, delete 500 (the merge
    exact, no tombstoned id), v8 round trip, compact; IVF at 1,000,000 rows
-   (random codes, 1,024 balanced cells, nprobe 16): timing only.
+   (random codes, 1,024 balanced cells, nprobe 16): timing only;
+8. HNSW and hybrid search, after phase 7's indexes are dropped.  8a:
+   ``build(index="hnsw")`` of the first 8,192 phase-4 rows at the
+   reference's Table 2 configuration (m 16, ef_construction 128), its
+   seconds split into rotation, encode and host graph; ef 64 and 192 over
+   the 640 queries: launches (B2, B4, no full scan), recall@10 against
+   exact f32 over the 8,192 rows and the 4-bit full scan's beside it,
+   recall and ids against the CPU plain search of the card-built file
+   (0.01, 99%), repeat and save -> load -> search byte-identical.  8c: a
+   10% allowlist and two phase-7a-style predicates at ef 128: only
+   admissible ids, a valid share >= 0.95, the CPU plain path's results.
+   8e: phase 6's graph / eager / bucket checks at ef 64; ``warmup(64)``
+   then 10 searches capturing nothing, the launches equal to the graphs'
+   tallies times their replays; block replays and loop iterations a
+   search; graph and eager latency in turns, the graphs' device time by
+   CUDA events and the idle estimate, beside the 8,192-row full scan.  8b:
+   two card builds of 2,048 rows at the defaults (``recommended_m``,
+   ef_construction 100) equal graphs and file bytes; neighbour entries and
+   codes differing from a CPU plain build (reported).  8d: add 512 rows and
+   delete 200 (no tombstoned id, the CPU's results), v8 round trips,
+   compact keeping m and ef_construction with the CPU compaction's recall;
+   a 2-bit HNSW with an added segment (B5, B3).  8f: hybrid dense + BM25
+   over the phase-4 corpus with seeded docs (topic terms, shared and
+   non-ASCII words) and each query's text from the doc of its source row:
+   batched and single searches, plain, ``where=`` and an allowlist, ids
+   equal to the CPU plain path's; ``MicroBatcher`` ``text=`` requests in
+   one execution; batch latency split into the dense replay and the host
+   BM25 + RRF.
 
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -196,6 +223,17 @@ IVF_NLIST, IVF_TRAIN_ITERS = 64, 25     # the reference's build defaults (ivf.py
 IVF_NPROBES = (8, 16, 64)               # 64 = nlist: every cell, the full scan's scores
 IVF_CPU_ROWS = 8000                     # rows of the CPU-against-card clustering check
 IVF_BIG_NLIST, IVF_BIG_NPROBE = 1024, 16   # the 1,000,000-row IVF timing
+# Phase 8: HNSW at the reference's Table 2 configuration
+# (benchmarks/paper_tables.py:49-57: the first 8,192 rows, m 16,
+# ef_construction 128, search ef 192), and hybrid dense + BM25 search.
+HNSW_N, HNSW_M, HNSW_EFC = 8192, 16, 128
+HNSW_EFS = (64, 192)
+HNSW_SMALL = 2048                      # 8b / 8d: the defaults (recommended_m, 100)
+HNSW_2BIT_N = 1024                     # 8d: a 2-bit HNSW (B5, and B3 after an add)
+HNSW_ADD, HNSW_DELETE = 512, 200       # 8d
+HNSW_FILTER_EF = 128                   # 8c: the reference's filtered-HNSW test's ef
+HYBRID_WORDS = ("report", "market", "team", "season", "price", "study", "city", "data",
+                "café", "naïve", "straße", "北京", "東京", "données", "über", "año")
 
 FAILURES: list = []
 
@@ -959,6 +997,480 @@ def filter_ivf_phase(c) -> dict:
     del big
     torch.cuda.empty_cache()
     say(f"phase 7b: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def staged_device_ms(torch, index, kw: dict, qs, replays: int = 10) -> tuple:
+    """Device time of one search of 64 at k=10 with ``kw`` on a plan with
+    loops (HNSW): its graphs replayed back to back with the block counts of
+    that search (no host check between blocks), CUDA events around
+    ``replays`` such sequences, on a fresh handle of the same tensors.
+    Returns (ms, block replays of each loop)."""
+    from repro_torch import MonaVec
+
+    fresh = MonaVec(dataclasses.replace(index.backend), index.mut, index.meta)
+    fresh.search(qs[:64], k=10, **kw)
+    (graph,) = fresh.backend.graphs.values()
+    blocks = list(graph.last_blocks)
+    graph.replay_parts(blocks)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay_parts(blocks)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays, blocks
+
+
+def hnsw_hybrid_phase(c) -> dict:
+    """Phase 8: the HNSW backend at Table 2's configuration (build, search
+    against exact and against the CPU plain path, determinism, filters,
+    lifecycle, the engine's block replays) and hybrid dense + BM25 search
+    with RRF fusion on the phase-4 corpus.  ``c`` carries the main phase's
+    tensors and helpers."""
+    torch, np, dev = c.torch, c.np, c.dev
+    from repro_torch import MonaVec, engine
+    from repro_torch.core import hnsw as hnsw_mod, quantize as qz, scoring
+    from repro_torch.core.allowlist import Allowlist
+    from repro_torch.core.bruteforce import BruteForceIndex
+    from repro_torch.core.convert import encoded_from_arrays
+    from repro_torch.core.hybrid import HybridIndex
+    from repro_torch.core.metadata import MetaStore
+    from repro_torch.core.predicate import Eq, Lt
+    from repro_torch.core.segments import SENTINEL_ID
+    from repro_torch.core.tenancy import TenantRegistry
+    from repro_torch.data.synthetic import _rng
+
+    corpus, queries, expect, say = c.corpus, c.queries, c.expect, c.say
+    cpu_q = 64 * CPU_CASCADE_BATCHES          # queries of every CPU plain comparison
+    out: dict = {}
+    qt = torch.from_numpy(queries).to(dev)
+
+    def exact_ids(rows: np.ndarray, live: Optional[np.ndarray] = None) -> np.ndarray:
+        """Exact f32 cosine top-10 over ``rows`` (row == id), live rows only."""
+        s = scoring.score_f32(qt, torch.from_numpy(rows).to(dev), "cosine")
+        if live is not None:
+            s[:, ~torch.from_numpy(live).to(dev)] = -float("inf")
+        return scoring.topk(s, 10)[1].cpu().numpy()
+
+    def recall(found: np.ndarray, exact: np.ndarray) -> float:
+        return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10.0
+                              for a, b in zip(found, exact)]))
+
+    def run(index, kw: dict, batches: int = BATCHES):
+        res = [index.search(queries[64 * i: 64 * (i + 1)], k=10, **kw) for i in range(batches)]
+        return np.concatenate([r[0] for r in res]), np.concatenate([r[1] for r in res])
+
+    def same(a, b) -> bool:
+        return a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes()
+
+    def launched(fn):
+        c.reset_counts()
+        torch.cuda.synchronize()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, c.read_counts()
+
+    def held_graphs(index) -> bool:
+        """Every graph the index holds is the several-part form of a plan
+        with loops: its searches ran as replays, not eagerly."""
+        graphs = list(index.backend.graphs.values())
+        return bool(graphs) and all(len(g.parts) > 2 and g.graph is None for g in graphs)
+
+    def built(rows, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = MonaVec.build(rows, index="hnsw", **kw)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    # ---- 8a. HNSW at Table 2's configuration ------------------------------------
+    t_phase = time.perf_counter()
+    sub = corpus[:HNSW_N]
+    exact = exact_ids(sub)
+    (h, build_s), b_launch = launched(lambda: built(sub, m=HNSW_M, ef_construction=HNSW_EFC))
+    be = h.backend
+    secs = be.build_seconds
+    levels = np.bincount(be.node_level.astype(np.int64))
+    say(f"hnsw build {HNSW_N}x{DIM} m={HNSW_M} ef_construction={HNSW_EFC}: {build_s:.3f} s = "
+        f"rotation (B2 and the copy to the host) {secs['rotate']:.3f} + encode "
+        f"{secs['encode']:.3f} + host graph {secs['graph']:.3f}; max_level {be.max_level}, "
+        f"nodes per level {levels.tolist()}, entry {be.entry_point}; launches {b_launch}")
+    expect(b_launch["fwht"] == 1, f"hnsw build: the corpus is not rotated once on the card "
+                                  f"({b_launch})")
+    out["build"] = {"seconds": build_s, **secs, "max_level": be.max_level,
+                    "levels": levels.tolist(), "launches": b_launch}
+    full4 = MonaVec.build(sub)
+    out["full_scan_recall_at_10"] = recall(run(full4, {})[1], exact)
+    tdir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    td = Path(tdir.name)
+    h.save(str(td / "h.mvec"))
+    cpu_h = MonaVec.load(str(td / "h.mvec"), device="cpu")
+    h_back = MonaVec.load(str(td / "h.mvec"))
+    out["hnsw"] = {}
+    hnsw_launches = {}
+    for ef in HNSW_EFS:
+        (s_card, i_card), got = launched(lambda: run(h, {"ef": ef}))
+        for name, n in got.items():
+            hnsw_launches[name] = hnsw_launches.get(name, 0) + n
+        kernels_ok = (got["gather_nibble_dot"] > 0 and got["fwht"] > 0
+                      and got["nibble_dot"] == 0 and held_graphs(h))
+        s_cpu, i_cpu = cpu_h.search(queries[:cpu_q], k=10, ef=ef)
+        again = run(h, {"ef": ef})
+        back = run(h_back, {"ef": ef})
+        e = {"launches": got, "recall_at_10": recall(i_card, exact),
+             "recall_at_10_card_cpu_queries": recall(i_card[:cpu_q], exact),
+             "recall_at_10_cpu": recall(i_cpu, exact),
+             "ids_equal_cpu": float(np.mean(i_cpu == i_card[:cpu_q])),
+             "repeat_identical": same(again, (s_card, i_card)),
+             "reload_identical": same(back, (s_card, i_card))}
+        say(f"hnsw ef={ef}: recall@10 {e['recall_at_10']:.4f} vs exact over {HNSW_N} rows "
+            f"(the 4-bit full scan's {out['full_scan_recall_at_10']:.4f}); on the {cpu_q} CPU "
+            f"queries card {e['recall_at_10_card_cpu_queries']:.4f} CPU plain (card-built "
+            f"file) {e['recall_at_10_cpu']:.4f}, ids equal {e['ids_equal_cpu']:.4%}; repeat "
+            f"{e['repeat_identical']}, save -> load -> search {e['reload_identical']}; "
+            f"launches {got}")
+        expect(kernels_ok, f"hnsw ef={ef}: launches {got} or no graph held")
+        expect(abs(e["recall_at_10_card_cpu_queries"] - e["recall_at_10_cpu"]) <= 0.01,
+               f"hnsw ef={ef}: recall vs the CPU plain path")
+        expect(e["ids_equal_cpu"] >= 0.99, f"hnsw ef={ef}: ids differ from the CPU in over 1%")
+        expect(e["repeat_identical"] and e["reload_identical"],
+               f"hnsw ef={ef}: a repeat or a reload differs")
+        out["hnsw"][ef] = e
+    del h_back
+    say(f"phase 8a: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 8c. filters on the 8a index ---------------------------------------------
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    cols = {"lang": np.array(LANGS)[rng.integers(0, len(LANGS), HNSW_N)],
+            "date": rng.integers(0, 1_000_000, HNSW_N)}
+    hm = MonaVec(h.backend, meta=MetaStore.build(cols, HNSW_N))
+    cpu_hm = MonaVec(cpu_h.backend, meta=hm.meta)
+    tenth = np.arange(HNSW_N) % 10 == 0
+    filters = {"allow_10pct": ({"allow": Allowlist(mask=tenth, n_allowed=int(tenth.sum()))},
+                               tenth),
+               "eq_lang": ({"where": Eq("lang", "en")},
+                           np.asarray(cols["lang"] == "en")),
+               "lang_date": ({"where": Eq("lang", "en") & Lt("date", 500_000)},
+                             np.asarray((cols["lang"] == "en") & (cols["date"] < 500_000)))}
+    out["filters"] = {}
+    for name, (kw, mask) in filters.items():
+        kw = dict(kw, ef=HNSW_FILTER_EF)
+        s_f, i_f = run(hm, kw)
+        real = i_f != SENTINEL_ID
+        admissible = bool(mask[i_f[real].astype(np.int64)].all())
+        s_cpu, i_cpu = cpu_hm.search(queries[:cpu_q], k=10, **kw)
+        ex = exact_ids(sub, mask)
+        e = {"share": float(mask.mean()), "valid_share": float(real.mean()),
+             "admissible": admissible, "recall_at_10": recall(i_f, ex),
+             "recall_at_10_card_cpu_queries": recall(i_f[:cpu_q], ex),
+             "recall_at_10_cpu": recall(i_cpu, ex),
+             "ids_equal_cpu": float(np.mean(i_cpu == i_f[:cpu_q]))}
+        say(f"hnsw filter {name} ({e['share']:.2%} of rows) ef={HNSW_FILTER_EF}: valid share "
+            f"{e['valid_share']:.4f}, only admissible ids {admissible}; recall@10 over the "
+            f"admissible rows {e['recall_at_10']:.4f}; on the CPU queries card "
+            f"{e['recall_at_10_card_cpu_queries']:.4f} CPU plain {e['recall_at_10_cpu']:.4f}, "
+            f"ids equal {e['ids_equal_cpu']:.4%}")
+        expect(admissible and e["valid_share"] >= 0.95,
+               f"hnsw filter {name}: an inadmissible id or a valid share under 0.95")
+        expect(abs(e["recall_at_10_card_cpu_queries"] - e["recall_at_10_cpu"]) <= 0.01
+               and e["ids_equal_cpu"] >= 0.99, f"hnsw filter {name}: not the CPU's results")
+        out["filters"][name] = e
+    del hm, cpu_hm
+    say(f"phase 8c: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 8e. the engine on the 8a index --------------------------------------------
+    t_phase = time.perf_counter()
+    kw64 = {"ef": HNSW_EFS[0]}
+    out["engine"] = engine_checks("hnsw ef=64", h, kw64, queries)
+    cache = engine.plan_cache()
+    fresh = MonaVec(dataclasses.replace(h.backend), h.mut)
+    cache.clear()
+    searcher = fresh.searcher(k=10, **kw64)
+    before = cache.stats.snapshot()
+    searcher.warmup(64)
+    warm = cache.stats.since(before)
+    (graph,) = fresh.backend.graphs.values()
+    counters = c.counters
+    c.reset_counts()
+    before = cache.stats.snapshot()
+    blocks, want = [], {name: 0 for name in counters}
+    for i in range(BATCHES):
+        searcher(queries[64 * i: 64 * (i + 1)])
+        blocks.append(list(graph.last_blocks))
+        loops = iter(graph.last_blocks)
+        for part, is_loop in graph.parts:
+            n = next(loops) if is_loop else 1
+            for name, counter in counters.items():
+                want[name] += n * part.tally.get(counter, 0)
+    after = cache.stats.since(before)
+    got = c.read_counts()
+    b4_per_search = want["gather_nibble_dot"] / BATCHES
+    traces = []
+    for i in range(BATCHES):
+        trace: list = []
+        q_rot = qz.encode_query(qt[64 * i: 64 * (i + 1)], be.enc)
+        hnsw_mod.search_stage(q_rot, be.enc.packed, be.enc.qnorms, be.nbr0_t, be.nbr_hi_t,
+                              torch.ones(HNSW_N, dtype=torch.bool, device=dev),
+                              entry=be.entry_point, ef=HNSW_EFS[0], k=10, metric="cosine",
+                              bits=4, n4_dims=0, max_level=be.max_level, trace=trace)
+        traces.append(trace)
+    say(f"engine hnsw warm-up: warmup(64) misses {warm.misses} captures {warm.captures}; "
+        f"{BATCHES} searches after: misses {after.misses} captures {after.captures}; "
+        f"{len(graph.parts)} graphs a plan; block replays a search (descent levels "
+        f"{be.max_level}..1, beam) {blocks}; iterations per loop {traces}; launches {got} "
+        f"= the tallies times the replays {want}; B4 launches a search {b4_per_search:.1f}")
+    expect(warm.misses == 1 and warm.captures == 1, "engine hnsw: warmup(64) did not capture "
+                                                    "exactly once")
+    expect(after.misses == 0 and after.captures == 0,
+           "engine hnsw: searches after the warm-up minted a plan or a graph")
+    expect(got == want and got["gather_nibble_dot"] > 0,
+           "engine hnsw: launches are not the replays' tallies")
+    out["engine"].update(warmup=dataclasses.asdict(warm), after=dataclasses.asdict(after),
+                         block_replays=blocks, iterations=traces, launches=got,
+                         b4_per_search=b4_per_search, graphs_per_plan=len(graph.parts))
+    del fresh, searcher, graph
+    runs = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "graph", "eager"):
+        fn = ((lambda qb: h.search(qb, k=10, **kw64)) if mode == "graph"
+              else (lambda qb: search_eager(h, qb, **kw64)))
+        runs[mode].append(batch_latencies(fn, queries, 20))
+    dev_ms, dev_blocks = staged_device_ms(torch, h, kw64, queries)
+    full_lat = batch_latencies(lambda qb: full4.search(qb, k=10), queries, 20)
+    full_dev = graph_device_ms(torch, full4, {}, queries)
+    g, e_ = runs["graph"], runs["eager"]
+    idle = max(0.0, 1.0 - dev_ms / g[0]["median_ms"])
+    say(f"turns hnsw ef=64: batch median graph {g[0]['median_ms']:.4f} / "
+        f"{g[1]['median_ms']:.4f} ms, eager {e_[0]['median_ms']:.4f} / "
+        f"{e_[1]['median_ms']:.4f} ms; p90 graph {g[0]['p90_ms']:.4f} / {g[1]['p90_ms']:.4f}, "
+        f"eager {e_[0]['p90_ms']:.4f} / {e_[1]['p90_ms']:.4f} ms; graphs' device time "
+        f"{dev_ms:.4f} ms a search (blocks {dev_blocks}), idle share estimate {idle:.3f}; "
+        f"the 4-bit full scan of the same {HNSW_N} rows: median {full_lat['median_ms']:.4f} ms, "
+        f"graph device {full_dev:.4f} ms")
+    out["timing"] = {"graph": g, "eager": e_, "graph_device_ms": dev_ms,
+                     "device_blocks": dev_blocks, "idle_share_estimate": idle,
+                     "full_scan": full_lat, "full_scan_device_ms": full_dev}
+    lat192 = batch_latencies(lambda qb: h.search(qb, k=10, ef=HNSW_EFS[1]), queries, 20)
+    dev192, blocks192 = staged_device_ms(torch, h, {"ef": HNSW_EFS[1]}, queries)
+    say(f"hnsw ef=192: batch median {lat192['median_ms']:.4f} ms p90 {lat192['p90_ms']:.4f} ms; "
+        f"device {dev192:.4f} ms (blocks {blocks192})")
+    out["timing"]["ef192"] = {"latency": lat192, "graph_device_ms": dev192,
+                              "device_blocks": blocks192}
+    del full4, cpu_h, h, be
+    torch.cuda.empty_cache()
+    say(f"phase 8e: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 8b. determinism at the defaults -------------------------------------------
+    t_phase = time.perf_counter()
+    small = corpus[:HNSW_SMALL]
+    a, a_s = built(small)
+    b, b_s = built(small)
+    cpu_a = MonaVec.build(small, index="hnsw", device="cpu")
+    a.save(str(td / "a.mvec"))
+    b.save(str(td / "b.mvec"))
+    ab, cb = a.backend, cpu_a.backend
+    graphs_equal = (ab.neighbors0.tobytes() == b.backend.neighbors0.tobytes()
+                    and ab.neighbors_hi.tobytes() == b.backend.neighbors_hi.tobytes()
+                    and (ab.entry_point, ab.max_level) == (b.backend.entry_point,
+                                                           b.backend.max_level))
+    files_equal = (td / "a.mvec").read_bytes() == (td / "b.mvec").read_bytes()
+    nbr_diff = int((ab.neighbors0 != cb.neighbors0).sum())
+    if ab.neighbors_hi.shape == cb.neighbors_hi.shape:
+        nbr_diff += int((ab.neighbors_hi != cb.neighbors_hi).sum())
+    else:
+        nbr_diff = -1
+    unpack = qz.unpack_4bit
+    flips = int((unpack(ab.enc.packed).cpu() != unpack(cb.enc.packed)).sum())
+    flip_rows = int((unpack(ab.enc.packed).cpu() != unpack(cb.enc.packed)).any(dim=1).sum())
+    out["determinism"] = {"m": ab.m, "ef_construction": ab.ef_construction,
+                          "build_s": [a_s, b_s], "graphs_equal": graphs_equal,
+                          "files_equal": files_equal,
+                          "neighbour_entries_differing_cpu": nbr_diff,
+                          "code_flips_cpu": flips, "code_flip_rows_cpu": flip_rows,
+                          "cpu_build_seconds": cb.build_seconds}
+    say(f"hnsw determinism {HNSW_SMALL} rows, m={ab.m} (recommended_m) ef_construction="
+        f"{ab.ef_construction}: builds {a_s:.3f} / {b_s:.3f} s; two card builds give equal "
+        f"graphs {graphs_equal} and byte-identical files {files_equal}; against the CPU plain "
+        f"build: {nbr_diff} neighbour entries differ (-1: another top level), {flips} codes "
+        f"flip in {flip_rows} rows (reported)")
+    expect(ab.m == MonaVec.recommended_m(HNSW_SMALL) and graphs_equal and files_equal,
+           "hnsw determinism: two card builds differ")
+    del b, cpu_a
+    say(f"phase 8b: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 8d. lifecycle on the 8b index --------------------------------------------
+    t_phase = time.perf_counter()
+    a.add(corpus[HNSW_SMALL: HNSW_SMALL + HNSW_ADD])
+    ids = a.ids
+    dead = ids[::(HNSW_SMALL + HNSW_ADD) // HNSW_DELETE][:HNSW_DELETE]
+    n_dead = a.delete(dead)
+    (s_m, i_m), got = launched(lambda: run(a, {"ef": 64}))
+    no_dead = not np.isin(i_m, dead).any()
+    a.save(str(td / "a8.mvec"))
+    a8 = MonaVec.load(str(td / "a8.mvec"))
+    a8.save(str(td / "a8b.mvec"))
+    v8_ok = ((td / "a8.mvec").read_bytes()[4] == 8
+             and same(a8.search(queries[:64], k=10, ef=64), (s_m[:64], i_m[:64]))
+             and (td / "a8.mvec").read_bytes() == (td / "a8b.mvec").read_bytes())
+    cpu_a8 = MonaVec.load(str(td / "a8.mvec"), device="cpu")
+    live_rows = ~np.isin(np.arange(HNSW_SMALL + HNSW_ADD), dead)
+    ex = exact_ids(corpus[:HNSW_SMALL + HNSW_ADD], live_rows)
+    s_cpu, i_cpu = cpu_a8.search(queries[:cpu_q], k=10, ef=64)
+    reclaimed = a.compact()
+    cpu_a8.compact()
+    c_card = run(a, {"ef": 64})[1]
+    c_cpu = cpu_a8.search(queries[:cpu_q], k=10, ef=64)[1]
+    e = {"deleted": n_dead, "launches": got, "no_tombstoned_id": no_dead,
+         "recall_at_10": recall(i_m, ex),
+         "recall_at_10_card_cpu_queries": recall(i_m[:cpu_q], ex),
+         "recall_at_10_cpu": recall(i_cpu, ex),
+         "ids_equal_cpu": float(np.mean(i_cpu == i_m[:cpu_q])), "v8_round_trip": v8_ok,
+         "compact_reclaimed": reclaimed, "compact_m": a.backend.m,
+         "compact_ef_construction": a.backend.ef_construction,
+         "compact_recall_at_10": recall(c_card, ex),
+         "compact_recall_at_10_card_cpu_queries": recall(c_card[:cpu_q], ex),
+         "compact_recall_at_10_cpu": recall(c_cpu, ex),
+         "compact_ids_equal_cpu": float(np.mean(c_cpu == c_card[:cpu_q]))}
+    say(f"hnsw lifecycle: add {HNSW_ADD}, delete {n_dead}; ef=64 launches {got}; no tombstoned "
+        f"id {no_dead}; recall@10 {e['recall_at_10']:.4f}, CPU plain {e['recall_at_10_cpu']:.4f}"
+        f" (ids equal {e['ids_equal_cpu']:.4%}); v8 save -> load -> search and -> save "
+        f"byte-identical {v8_ok}; compact reclaimed {reclaimed}, m {a.backend.m} "
+        f"ef_construction {a.backend.ef_construction}, recall@10 {e['compact_recall_at_10']:.4f}"
+        f", on the CPU queries card {e['compact_recall_at_10_card_cpu_queries']:.4f} CPU plain "
+        f"compact {e['compact_recall_at_10_cpu']:.4f} (ids equal "
+        f"{e['compact_ids_equal_cpu']:.4%})")
+    expect(n_dead == HNSW_DELETE and no_dead and v8_ok and reclaimed == HNSW_DELETE,
+           "hnsw lifecycle: a check failed")
+    expect(got["nibble_dot"] > 0 and got["gather_nibble_dot"] > 0 and got["fwht"] > 0,
+           f"hnsw lifecycle: launches {got}")
+    expect(e["ids_equal_cpu"] >= 0.99
+           and abs(e["recall_at_10_card_cpu_queries"] - e["recall_at_10_cpu"]) <= 0.01,
+           "hnsw lifecycle: not the CPU's results")
+    expect(a.backend.m == ab.m and a.backend.ef_construction == ab.ef_construction
+           and abs(e["compact_recall_at_10_card_cpu_queries"]
+                   - e["compact_recall_at_10_cpu"]) <= 0.01,
+           "hnsw compact: m, ef_construction or recall is not the CPU's")
+    out["lifecycle"] = e
+    lifecycle_launches = got
+    del a, a8, cpu_a8, ab, cb
+    # A 2-bit HNSW: its beam on B5, its extra segment's scan on B3.
+    two, _ = built(corpus[:HNSW_2BIT_N], bits=2, m=HNSW_M, ef_construction=HNSW_EFC)
+    two.add(corpus[HNSW_2BIT_N: HNSW_2BIT_N + 64])
+    (_, i2), got2 = launched(lambda: run(two, {"ef": 64}))
+    e2 = {"launches": got2, "recall_at_10": recall(i2, exact_ids(
+        corpus[:HNSW_2BIT_N + 64]))}
+    say(f"hnsw 2-bit {HNSW_2BIT_N} + 64 rows: recall@10 {e2['recall_at_10']:.4f}; launches "
+        f"{got2}")
+    expect(got2["gather_crumb_dot"] > 0 and got2["crumb_dot"] > 0
+           and got2["gather_nibble_dot"] == 0 and held_graphs(two),
+           f"hnsw 2-bit: launches {got2}")
+    out["hnsw_2bit"] = e2
+    del two
+    tdir.cleanup()
+    torch.cuda.empty_cache()
+    say(f"phase 8d: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 8f. hybrid dense + BM25 --------------------------------------------------
+    t_phase = time.perf_counter()
+    # Each row's doc: its topic's terms (the stand-in's cluster, drawn as
+    # embedding_corpus draws it), shared and non-ASCII words; each query's
+    # text: words of the doc of the row queries_from_corpus copied.
+    g = _rng(SEED, 0, 2)
+    g.standard_normal((64, DIM))
+    topic = g.integers(0, 64, size=N)
+    src = _rng(SEED + 1, 1, 4).integers(0, N, size=len(queries))
+    trng = np.random.default_rng(SEED + 11)
+    words = np.array(HYBRID_WORDS)
+    docs = [" ".join([f"topic{t}", f"term{t}x{trng.integers(0, 4)}"]
+                     + list(words[trng.integers(0, len(words), trng.integers(2, 7))]))
+            for t in topic]
+    texts = [" ".join(docs[r].split()[:3]) for r in src]
+    hcols = {"lang": np.array(LANGS)[trng.integers(0, len(LANGS), N)]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hy = HybridIndex.build(corpus, docs, meta=hcols)
+    torch.cuda.synchronize()
+    hy_build = time.perf_counter() - t0
+    de = hy.dense.enc
+    cpu_hy = HybridIndex(dense=BruteForceIndex(enc=encoded_from_arrays(
+        de.packed.cpu().numpy(), de.qnorms.cpu().numpy(), seed=de.seed, metric="cosine",
+        bits=4, dim=DIM, dim_pad=de.dim_pad, device="cpu"), ids=hy.dense.ids),
+        sparse=hy.sparse, meta=hy.meta)
+    mask = np.arange(N) % 4 == 0
+    allow = Allowlist(mask=mask, n_allowed=int(mask.sum()))
+    cases = {"plain": {}, "where": {"where": Eq("lang", "en")}, "allow": {"allow": allow}}
+    out["hybrid"] = {"build_s": hy_build}
+    hybrid_launches = None
+    for name, kw in cases.items():
+        res, got = launched(lambda: [hy.search(queries[64 * i: 64 * (i + 1)],
+                                               texts[64 * i: 64 * (i + 1)], 10, **kw)
+                                     for i in range(BATCHES)])
+        if hybrid_launches is None:
+            hybrid_launches = got
+        ids_card = np.concatenate([r[1] for r in res])
+        ids_cpu = np.concatenate([cpu_hy.search(queries[64 * i: 64 * (i + 1)],
+                                                texts[64 * i: 64 * (i + 1)], 10, **kw)[1]
+                                  for i in range(CPU_CASCADE_BATCHES)])
+        single = [hy.search(queries[i], texts[i], 10, **kw) for i in range(8)]
+        single_ok = all(s_[1].ndim == 1 and s_[1].tobytes()
+                        == ids_card[i, :s_[1].shape[0]].tobytes()
+                        for i, s_ in enumerate(single))
+        single_cpu = all(s_[1].tobytes() == cpu_hy.search(queries[i], texts[i], 10, **kw)[1]
+                         .tobytes() for i, s_ in enumerate(single))
+        real = ids_card[ids_card >= 0]
+        if name == "where":
+            admissible = bool((hcols["lang"][real] == "en").all())
+        elif name == "allow":
+            admissible = bool(mask[real].all())
+        else:
+            admissible = True
+        cpu_equal = ids_cpu.tobytes() == ids_card[:cpu_q].tobytes()
+        say(f"hybrid {name}: ids equal to the CPU plain path on {cpu_q} queries {cpu_equal}; "
+            f"single queries = their batched rows {single_ok}, = the CPU's {single_cpu}; "
+            f"only admissible ids {admissible}; launches {got}")
+        expect(cpu_equal and single_ok and single_cpu and admissible,
+               f"hybrid {name}: not the CPU plain path's ids, or an inadmissible id")
+        expect(got["nibble_dot"] > 0 and got["fwht"] > 0 and bool(hy.dense.graphs),
+               f"hybrid {name}: the dense channel did not replay its graph ({got})")
+        out["hybrid"][name] = {"cpu_equal": cpu_equal, "single_ok": single_ok,
+                               "single_cpu": single_cpu, "admissible": admissible,
+                               "launches": got}
+    reg = TenantRegistry()
+    reg.put("t", "docs", hy)
+    mb = engine.MicroBatcher(reg)
+    tickets = [mb.submit("t", "docs", queries[:3], k=10, text=texts[:3]),
+               mb.submit("t", "docs", queries[3:4], k=10, text=texts[3]),
+               mb.submit("t", "docs", queries[4:9], k=10, text=texts[4:9])]
+    flushes = mb.flush()
+    direct = hy.search(queries[:9], texts[:9], 10)
+    cat = np.concatenate([t.result()[1] for t in tickets])
+    batched_ok = flushes == 1 and cat.tobytes() == direct[1].tobytes()
+    say(f"hybrid MicroBatcher text=: 3 requests in {flushes} execution(s), rows = the direct "
+        f"batched search {batched_ok}")
+    expect(batched_ok, "hybrid MicroBatcher: not one execution or not the direct rows")
+    dense_lat = batch_latencies(lambda qb: engine.search_backend(
+        hy.dense, None, qb, 20, meta=hy.meta), queries, 20)
+    qi = {"i": 0}
+
+    def hybrid_batch(qb):
+        i = qi["i"] % BATCHES
+        qi["i"] += 1
+        return hy.search(queries[64 * i: 64 * (i + 1)], texts[64 * i: 64 * (i + 1)], 10)
+
+    hy_lat = batch_latencies(hybrid_batch, queries, 20)
+    host_ms = hy_lat["median_ms"] - dense_lat["median_ms"]
+    say(f"hybrid timing (batch of 64, fetch_k 20): median {hy_lat['median_ms']:.4f} ms p90 "
+        f"{hy_lat['p90_ms']:.4f} ms = dense replay {dense_lat['median_ms']:.4f} ms (p90 "
+        f"{dense_lat['p90_ms']:.4f}) + host BM25 and RRF ~{host_ms:.4f} ms "
+        f"({host_ms / 64:.4f} ms a query); build {hy_build:.2f} s")
+    out["hybrid"].update(latency=hy_lat, dense_latency=dense_lat, host_ms=host_ms,
+                         batcher_ok=batched_ok)
+    del hy, cpu_hy, reg, mb
+    torch.cuda.empty_cache()
+    say(f"phase 8f: {time.perf_counter() - t_phase:.1f} s")
+    out["launches"] = {"hnsw": hnsw_launches, "hnsw_lifecycle": lifecycle_launches,
+                       "hnsw_2bit": got2, "hybrid": hybrid_launches}
     return out
 
 
@@ -2413,6 +2925,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 8. HNSW and hybrid ------------------------------------------------------
+    t_phase = time.perf_counter()
+    report["hnsw_hybrid"] = hnsw_hybrid_phase(SimpleNamespace(
+        torch=torch, np=np, dev=dev, corpus=corpus, queries=queries, expect=expect, say=say,
+        reset_counts=reset_counts, read_counts=read_counts, counters=counters))
+    torch.cuda.empty_cache()
+    say(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/nibble_dot.cu",
@@ -2448,6 +2968,11 @@ def main() -> int:
             "max_abs_err": err, "ms": entry["kernel"]["median"],
             "plain_ms": entry["plain"]["median"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library"]["median"]})
+    # The launches of each kernel on phase 8's paths: HNSW (8a, both efs), its
+    # lifecycle (8d), a 2-bit HNSW with an added segment, hybrid (8f, plain).
+    for entry in kernels:
+        entry["launches_phase8"] = {path: counts[entry["name"]] for path, counts in
+                                    report["hnsw_hybrid"]["launches"].items()}
     report["kernels"] = kernels
     report["precision_launches"] = precision_launches
     report["failures"] = FAILURES

@@ -14,6 +14,9 @@
     idx = MonaVec.build(vectors, index="ivf", nlist=64, train_iters=25)
     scores, ids = idx.search(queries, k=10, nprobe=16)    # IVF, nprobe <= nlist
 
+    idx = MonaVec.build(vectors, index="hnsw", m=16, ef_construction=128)
+    scores, ids = idx.search(queries, k=10, ef=192)       # HNSW beam, ef >= k
+
     idx = MonaVec.build(vectors, meta={"lang": langs, "date": dates})
     scores, ids = idx.search(queries, k=10, where=Eq("lang", "en") & Ge("date", 20260101))
 
@@ -28,14 +31,15 @@ A mixed index with a variance permutation is built from a
 encoding as ``MonaVec(BruteForceIndex(enc=enc, ids=ids))``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
-The index lives on that device (``add`` and ``compact`` encode there, and an
-IVF build clusters there); ids, tombstones, metadata values and results are
-numpy arrays on the host.  Every search runs through the engine
-(``repro_torch.engine``): on the card one captured CUDA graph per plan,
+The index lives on that device (``add`` and ``compact`` encode there, an
+IVF build clusters there and an HNSW build rotates there, its graph being
+built on the host); ids, tombstones, metadata values and results are numpy
+arrays on the host.  Every search runs through the engine
+(``repro_torch.engine``): on the card the captured CUDA graphs of its plan,
 replayed.  ``save`` writes v10 with coarse codes, v9 with metadata columns,
 v8 once the index is mutated, v7 with a permutation and v6 otherwise; an IVF
-index carries its centroids and lists in INDEX_DATA.  HNSW is ROADMAP A8;
-autotuning and sharding are A11 and A12.
+index carries its centroids and lists in INDEX_DATA, an HNSW index its
+graph.  Autotuning and sharding are ROADMAP A11 and A12.
 """
 
 from __future__ import annotations
@@ -53,22 +57,20 @@ from . import segments as seg
 from .allowlist import Allowlist
 from .bruteforce import BruteForceIndex
 from .convert import encoded_from_arrays
+from .hnsw import HnswIndex, recommended_m
 from .ivf import IvfFlatIndex
 from .metadata import MetaStore
 from .standardize import COSINE, GlobalStd
 
-Backend = Union[BruteForceIndex, IvfFlatIndex]
-_TYPE_CODE = {BruteForceIndex: fmt.INDEX_BRUTEFORCE, IvfFlatIndex: fmt.INDEX_IVF}
-_IVF_BUILD_KNOBS = frozenset({"nlist", "train_iters"})
+Backend = Union[BruteForceIndex, IvfFlatIndex, HnswIndex]
+_TYPE_CODE = {BruteForceIndex: fmt.INDEX_BRUTEFORCE, IvfFlatIndex: fmt.INDEX_IVF,
+              HnswIndex: fmt.INDEX_HNSW}
+_BUILD_KNOBS = {"bruteforce": frozenset(), "ivf": frozenset({"nlist", "train_iters"}),
+                "hnsw": frozenset({"m", "ef_construction"})}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-def _unported_index(index: str) -> NotImplementedError:
-    return NotImplementedError(f"index={index!r} is not ported yet (ROADMAP A8); the port "
-                               f"has index='bruteforce' and index='ivf'")
 
 
 @dataclasses.dataclass
@@ -87,6 +89,11 @@ class MonaVec:
     def fit(sample) -> GlobalStd:
         """Single-pass global standardization for L2 corpora (paper fit())."""
         return GlobalStd.fit(sample)
+
+    @staticmethod
+    def recommended_m(n: int) -> int:
+        """Auto-M: the HNSW M a build of ``n`` rows takes by default."""
+        return recommended_m(n)
 
     @staticmethod
     def build(
@@ -108,19 +115,19 @@ class MonaVec:
         """Encode and index ``vectors`` at ``bits`` (2 or 4), or mixed 4/2-bit
         when ``avg_bits`` is given and is not 4; ``index="ivf"`` also clusters
         them (``nlist`` cells, ``train_iters`` Lloyd iterations, the
-        reference's defaults 64 and 25); ``meta`` names per-row columns
-        (int, float or str arrays of len(vectors))."""
+        reference's defaults 64 and 25); ``index="hnsw"`` builds the graph
+        (``m``, default ``recommended_m(n)``, and ``ef_construction``,
+        default 100); ``meta`` names per-row columns (int, float or str
+        arrays of len(vectors))."""
         if coarse is not None and index != "bruteforce":
             raise ValueError("coarse= (the binarized cascade) requires the bruteforce "
                              f"index, got index={index!r}")
-        if index == "hnsw":
-            raise _unported_index(index)
-        if index not in ("bruteforce", "ivf"):
+        if index not in _BUILD_KNOBS:
             raise ValueError(f"unknown index {index!r}")
-        unknown = sorted(set(kwargs) - (_IVF_BUILD_KNOBS if index == "ivf" else set()))
+        unknown = sorted(set(kwargs) - _BUILD_KNOBS[index])
         if unknown:
             raise TypeError(f"unexpected build kwargs for index={index!r}: {unknown}")
-        if index == "ivf" and avg_bits is not None and avg_bits != 4:
+        if index != "bruteforce" and avg_bits is not None and avg_bits != 4:
             raise ValueError("avg_bits (mixed precision) requires the bruteforce index")
         if autotune is not None and autotune is not False:
             raise _unported("autotune=", "A11")
@@ -130,6 +137,9 @@ class MonaVec:
         if index == "ivf":
             be: Backend = IvfFlatIndex.build(x, metric=metric, seed=seed, bits=bits,
                                              std=std, ids=ids, **kwargs)
+        elif index == "hnsw":
+            be = HnswIndex.build(x, metric=metric, seed=seed, bits=bits, std=std, ids=ids,
+                                 **kwargs)
         else:
             be = BruteForceIndex.build(x, metric=metric, seed=seed, bits=bits, std=std,
                                        ids=ids, avg_bits=avg_bits)
@@ -257,7 +267,8 @@ class MonaVec:
         again, a pure function of the current codes, so two equal op
         sequences compact to byte-identical indexes.  An IVF index is
         clustered again over the live rows (``nlist = min(nlist, n_live)``),
-        and metadata columns keep the live rows.  Returns the number of dead
+        an HNSW graph built again with the same ``m`` and ``ef_construction``
+        (100 when unknown), and metadata columns keep the live rows.  Returns the number of dead
         rows reclaimed."""
         reclaimed = self.n_total - self.n_live
         if not self.mut.extras and reclaimed == 0:
@@ -280,6 +291,11 @@ class MonaVec:
             self.backend = IvfFlatIndex.build(
                 live_vecs, ids=live_ids, metric=base.metric, seed=base.seed, bits=base.bits,
                 std=base.std, nlist=min(self.backend.nlist, live_ids.shape[0]))
+        elif isinstance(self.backend, HnswIndex):
+            self.backend = HnswIndex.build(
+                live_vecs, ids=live_ids, metric=base.metric, seed=base.seed, bits=base.bits,
+                std=base.std, m=self.backend.m,
+                ef_construction=self.backend.ef_construction or 100)
         else:
             enc = seg.encode_segment(live_vecs, base, base.seed)
             self.backend = BruteForceIndex(enc=enc, ids=live_ids)
@@ -325,7 +341,9 @@ class MonaVec:
         allowlist, predicate) -> stable top-k; with ``rescore_mult=r`` the
         cascade (coarse proxy -> r*k survivors per segment -> gathered
         rescore); on an IVF index the probe of ``nprobe`` cells, their
-        gathered scan and the extra segments' full scans, merged.  ``where``
+        gathered scan and the extra segments' full scans, merged; on an HNSW
+        index the beam of width ``ef`` (default 64, widened to k) over the
+        graph, merged the same way.  ``where``
         is a ``predicate.Predicate`` over the metadata columns.  Always
         exactly ``k`` columns; inadmissible slots carry SENTINEL_ID/NEG.
         Allowlists are built from ``MonaVec.ids``."""
@@ -346,13 +364,16 @@ class MonaVec:
 
     def save(self, path: str) -> None:
         be = self.backend
-        blob, param = None, 0
+        blob, param, param2 = None, 0, 0
         if isinstance(be, IvfFlatIndex):
             blob = fmt.pack_ivf_blob(be.centroids.cpu().numpy(), be.order, be.offsets)
             param = be.nlist
+        elif isinstance(be, HnswIndex):
+            blob = fmt.pack_hnsw_blob(be)
+            param, param2 = be.m, be.ef_construction or 0
         fmt.save(path, fmt.MvecFile(
             enc=be.enc, ids=be.ids, index_type=_TYPE_CODE[type(be)], index_param=param,
-            index_data=blob,
+            index_data=blob, index_param2=param2,
             extras=[fmt.ExtraSegment(enc=s.enc, ids=s.ids) for s in self.mut.extras],
             tombs=[self.mut.base_tombs] + [s.tombs for s in self.mut.extras],
             meta=self.meta))
@@ -368,7 +389,11 @@ class MonaVec:
             be = IvfFlatIndex(enc=f.enc, ids=f.ids, centroids=torch.from_numpy(cents.copy()),
                               order=order, offsets=offsets, nlist=f.index_param)
         elif f.index_type == fmt.INDEX_HNSW:
-            raise _unported_index("hnsw")
+            nbr0, nbr_hi, node_level, entry, max_level = fmt.unpack_hnsw_blob(
+                f.index_data or b"")
+            be = HnswIndex(enc=f.enc, ids=f.ids, neighbors0=nbr0, neighbors_hi=nbr_hi,
+                           node_level=node_level, entry_point=entry, max_level=max_level,
+                           m=f.index_param, ef_construction=f.index_param2 or None)
         else:
             raise ValueError(f"unknown index type {f.index_type}")
         mut = seg.SegmentedState(

@@ -1,11 +1,12 @@
 """Build the port's ``Encoded``, metadata columns and a segmented
-``MonaVec`` (BruteForce or IVF) from plain arrays.
+``MonaVec`` (BruteForce, IVF or HNSW) from plain arrays.
 
 The fields of an encoded corpus (packed codes, norms, seed, shape
 metadata and, for a mixed corpus, its 4/2 split and permutation) are the
 "weights" of this system; a mutated index adds per-segment ids, tombstones
-and the next segment ordinal, an IVF index its centroids and CSR lists, and
-an index with metadata its columns and vocabularies.  Taking them as numpy
+and the next segment ordinal, an IVF index its centroids and CSR lists, an
+HNSW index its graph, and an index with metadata its columns and
+vocabularies.  Taking them as numpy
 arrays lets one index, for example the reference's mutated ``MonaVec``,
 feed both packages with the same bytes without going through a file.
 """
@@ -118,6 +119,7 @@ def segmented_from_arrays(
     std_inv_std: Optional[float] = None,
     coarse: Optional[str] = None,
     ivf: Optional[dict] = None,
+    hnsw: Optional[dict] = None,
     meta=None,
     device: torch.device | str = "cuda",
 ):
@@ -126,11 +128,15 @@ def segmented_from_arrays(
     ``coarse`` every segment derives its coarse code from its codes.  With
     ``ivf`` (a dict of ``centroids`` [nlist, d'] f32, ``order`` [n], ``offsets``
     [nlist + 1] and ``nlist``) the base is an IVF index over those lists;
-    ``meta`` is a ``MetaStore`` over every segment's rows."""
+    with ``hnsw`` (a dict of ``neighbors0`` [n, 2M], ``neighbors_hi``
+    [max_level, n, M], ``node_level`` [n], ``entry_point``, ``max_level``,
+    ``m`` and ``ef_construction`` (None: unknown)) an HNSW index over that
+    graph; ``meta`` is a ``MetaStore`` over every segment's rows."""
     from . import binary
     from . import segments as seg
     from .api import MonaVec
     from .bruteforce import BruteForceIndex
+    from .hnsw import HnswIndex
     from .ivf import IvfFlatIndex
 
     if not segments:
@@ -156,11 +162,32 @@ def segmented_from_arrays(
     state = seg.SegmentedState(
         base_tombs=tombs0, next_ordinal=int(next_ordinal),
         extras=[seg.Segment(enc=e, ids=i, tombs=t) for e, i, t in extras])
-    if ivf is None:
+    if (ivf is not None or hnsw is not None) and coarse is not None:
+        raise ValueError("coarse codes belong to the bruteforce index")
+    if ivf is not None and hnsw is not None:
+        raise ValueError("pass ivf= or hnsw=, not both")
+    if hnsw is not None:
+        m = int(hnsw["m"])
+        nbr0 = np.asarray(hnsw["neighbors0"], dtype=np.int32)
+        max_level = int(hnsw["max_level"])
+        nbr_hi = np.asarray(hnsw["neighbors_hi"], dtype=np.int32).reshape(max_level, enc0.n, m)
+        levels = np.asarray(hnsw["node_level"], dtype=np.int8)
+        entry = int(hnsw["entry_point"])
+        if nbr0.shape != (enc0.n, 2 * m) or levels.shape != (enc0.n,):
+            raise ValueError(f"neighbors0 must be [{enc0.n}, {2 * m}] and node_level "
+                             f"[{enc0.n}], got {nbr0.shape} and {levels.shape}")
+        if enc0.n and not 0 <= entry < enc0.n:
+            raise ValueError(f"entry_point {entry} is not a row of the base segment")
+        if nbr0.size and (nbr0.min() < -1 or nbr0.max() >= enc0.n) or nbr_hi.size and (
+                nbr_hi.min() < -1 or nbr_hi.max() >= enc0.n):
+            raise ValueError("a neighbour is neither -1 nor a row of the base segment")
+        efc = hnsw.get("ef_construction")
+        backend = HnswIndex(enc=enc0, ids=ids0, neighbors0=nbr0, neighbors_hi=nbr_hi,
+                            node_level=levels, entry_point=entry, max_level=max_level, m=m,
+                            ef_construction=None if efc is None else int(efc))
+    elif ivf is None:
         backend = BruteForceIndex(enc=enc0, ids=ids0)
     else:
-        if coarse is not None:
-            raise ValueError("coarse codes belong to the bruteforce index")
         nlist = int(ivf["nlist"])
         cents = np.asarray(ivf["centroids"], dtype=np.float32)
         order = np.asarray(ivf["order"], dtype=np.int64)
@@ -192,4 +219,23 @@ def ivf_from_arrays(packed: np.ndarray, qnorms: np.ndarray, *, ids: np.ndarray,
         next_ordinal=1, metric=metric, bits=bits, dim=dim, dim_pad=dim_pad,
         std_mean=std_mean, std_inv_std=std_inv_std, meta=meta,
         ivf={"centroids": centroids, "order": order, "offsets": offsets, "nlist": nlist},
+        device=device)
+
+
+def hnsw_from_arrays(packed: np.ndarray, qnorms: np.ndarray, *, ids: np.ndarray,
+                     neighbors0: np.ndarray, neighbors_hi: np.ndarray, node_level: np.ndarray,
+                     entry_point: int, max_level: int, m: int,
+                     ef_construction: Optional[int], seed: int, metric: str, bits: int,
+                     dim: int, dim_pad: int, std_mean: Optional[float] = None,
+                     std_inv_std: Optional[float] = None, meta=None,
+                     device: torch.device | str = "cuda"):
+    """A static HNSW ``MonaVec`` over an encoded corpus and its graph."""
+    return segmented_from_arrays(
+        [{"packed": packed, "qnorms": qnorms, "seed": seed, "ids": ids,
+          "tombs": np.zeros(np.asarray(packed).shape[0], dtype=bool)}],
+        next_ordinal=1, metric=metric, bits=bits, dim=dim, dim_pad=dim_pad,
+        std_mean=std_mean, std_inv_std=std_inv_std, meta=meta,
+        hnsw={"neighbors0": neighbors0, "neighbors_hi": neighbors_hi,
+              "node_level": node_level, "entry_point": entry_point, "max_level": max_level,
+              "m": m, "ef_construction": ef_construction},
         device=device)

@@ -57,8 +57,8 @@ writes v6/v7.  Every read is checked against the bytes present, so a
 truncated or garbage-tailed file raises ValueError naming the block.
 Version 11 (autotune results) raises NotImplementedError naming ROADMAP
 A11.  An IVF index's centroids and lists are its INDEX_DATA
-(``pack_ivf_blob``); an HNSW file loads here as plain data, its index is
-A8.
+(``pack_ivf_blob``), an HNSW index's graph too (``pack_hnsw_blob``), with
+M in INDEX_PARAMS and ef_construction in its param2 (0 = unknown).
 """
 
 from __future__ import annotations
@@ -426,3 +426,29 @@ def unpack_ivf_blob(blob: bytes):
     offsets = rd.array(np.int64, "ivf offsets")
     rd.expect_eof()
     return cents.reshape(nlist, d), order, offsets
+
+
+def pack_hnsw_blob(idx) -> bytes:
+    """An HNSW index's INDEX_DATA: (n, 2M, max_level, entry_point,
+    max_level) as <IIIii, then neighbors0 [n, 2M] and neighbors_hi
+    [max_level, n, M] (int32, -1 padded) and node_level [n] (int8)."""
+    buf = io.BytesIO()
+    buf.write(struct.pack("<IIIii", idx.neighbors0.shape[0], idx.neighbors0.shape[1],
+                          idx.neighbors_hi.shape[0], idx.entry_point, idx.max_level))
+    _write_array(buf, idx.neighbors0.astype(np.int32))
+    _write_array(buf, idx.neighbors_hi.astype(np.int32))
+    _write_array(buf, idx.node_level.astype(np.int8))
+    return buf.getvalue()
+
+
+def unpack_hnsw_blob(blob: bytes):
+    """(neighbors0, neighbors_hi, node_level, entry_point, max_level) of an
+    HNSW INDEX_DATA."""
+    rd = _Reader(blob, 0)
+    n, m0, nhi, entry, max_level = struct.unpack("<IIIii", rd.take(20, "hnsw header"))
+    nbr0 = rd.array(np.int32, "hnsw neighbors0", count=n * m0).reshape(n, m0)
+    nbr_hi = rd.array(np.int32, "hnsw neighbors_hi", count=nhi * n * (m0 // 2))
+    nbr_hi = nbr_hi.reshape(nhi, n, m0 // 2) if nhi else np.zeros((0, n, m0 // 2), np.int32)
+    node_level = rd.array(np.int8, "hnsw node_level", count=n)
+    rd.expect_eof()
+    return nbr0, nbr_hi, node_level, entry, max_level

@@ -125,14 +125,23 @@ def encode(
     if bits not in (2, 4):
         raise ValueError(f"encode takes bits 2 or 4, got {bits}; use encode_mixed for the "
                          f"4/2 split")
-    d = x.shape[1]
     prepared = prepare(x.to(torch.float32), metric, std)
     rot = rhdh_apply(prepared, seed, normalized=False)   # quantizer space: ~N(0,1)
+    return encode_rotated(rot, dim=x.shape[1], metric=metric, seed=seed, bits=bits, std=std)
+
+
+def encode_rotated(rot: torch.Tensor, *, dim: int, metric: str, seed: int, bits: int,
+                   std: Optional[GlobalStd]) -> Encoded:
+    """``encode``'s quantize, norms and pack of rows it has already rotated
+    (``rhdh_apply(prepare(x), seed, normalized=False)``); bits 2 or 4."""
+    if bits not in (2, 4):
+        raise ValueError(f"encode takes bits 2 or 4, got {bits}; use encode_mixed for the "
+                         f"4/2 split")
     codes, deq = _quantize_rotated(rot, bits)
     qnorms = torch.linalg.vector_norm(deq, dim=-1)
     packed = pack_4bit(codes) if bits == 4 else pack_2bit(codes)
     return Encoded(packed=packed, qnorms=qnorms, seed=seed, metric=metric,
-                   bits=bits, dim=d, dim_pad=rot.shape[-1], std=std)
+                   bits=bits, dim=int(dim), dim_pad=rot.shape[-1], std=std)
 
 
 def decode(enc: Encoded) -> torch.Tensor:

@@ -2,12 +2,13 @@
 ``repro/engine/batcher.py``; DESIGN.md §7).
 
 Requests arriving across calls (and across tenants) are queued, coalesced
-per **(namespace, collection, k, where, knobs)** group, and executed as ONE
-bucketed plan call per group, so ten 3-query requests cost one replay of
-the 32-row bucket's graph instead of ten.  Predicates are frozen (hashable):
-equal predicates coalesce into one group, and two of one structure with
-other constants form two groups that share one plan and one graph.
-``text=`` (hybrid) requests are ROADMAP A10 and raise at ``submit``.
+per **(namespace, collection, k, where, hybrid?, knobs)** group, and
+executed as ONE bucketed plan call per group, so ten 3-query requests cost
+one replay of the 32-row bucket's graph instead of ten.  Predicates are
+frozen (hashable): equal predicates coalesce into one group, and two of one
+structure with other constants form two groups that share one plan and one
+graph.  ``text=`` requests (a ``HybridIndex`` collection) coalesce the same
+way, their texts concatenated in submission order beside the query rows.
 
 Because a bucketed plan run returns the same bytes as a direct search
 (plan.py), coalescing is invisible to callers: every request gets exactly
@@ -71,7 +72,7 @@ class Ticket:
 
 @dataclasses.dataclass
 class _Group:
-    """One coalescible (namespace, collection, k, where, knobs) stream."""
+    """One coalescible (namespace, collection, k, where, hybrid?, knobs) stream."""
 
     token: Optional[str]          # any token resolving to this namespace
     namespace: str                # resolved at submit — metric label only
@@ -80,6 +81,7 @@ class _Group:
     knobs: tuple
     where: object = None          # a predicate.Predicate, or None
     queries: List[np.ndarray] = dataclasses.field(default_factory=list)
+    texts: Optional[List[List[str]]] = None   # hybrid: the texts of each request
     tickets: List[Ticket] = dataclasses.field(default_factory=list)
 
 
@@ -115,23 +117,30 @@ class MicroBatcher:
         (401 = PermissionError, missing collection = KeyError, both here,
         never poisoning other tenants' flush).  Execution happens at the
         next ``flush()``.  ``where=`` is a metadata predicate, bound into
-        the group's search."""
-        if text is not None:
-            raise NotImplementedError("text= (hybrid search) is not ported yet "
-                                      "(ROADMAP A10)")
+        the group's search.  ``text=`` (a str, or one str per query row)
+        routes the group through the hybrid path: its texts concatenate
+        alongside the query rows."""
         ns = self.registry.resolve_namespace(token)
         if ns is None:
             raise PermissionError("401: token rejected")
         self.registry.get(token, collection)    # missing collection: raise now
         q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        key = (ns, collection, k, where, tuple(sorted(knobs.items())))
+        texts: Optional[List[str]] = None
+        if text is not None:
+            texts = [text] * int(q.shape[0]) if isinstance(text, str) else list(text)
+            if len(texts) != int(q.shape[0]):
+                raise ValueError(f"submit: {q.shape[0]} query rows but {len(texts)} texts")
+        key = (ns, collection, k, where, texts is not None, tuple(sorted(knobs.items())))
         group = self._groups.get(key)
         if group is None:
             group = self._groups[key] = _Group(
                 token=token, namespace=ns, collection=collection, k=k,
-                knobs=tuple(sorted(knobs.items())), where=where)
+                knobs=tuple(sorted(knobs.items())), where=where,
+                texts=[] if texts is not None else None)
         ticket = Ticket(self)
         group.queries.append(q)
+        if texts is not None:
+            group.texts.append(texts)
         group.tickets.append(ticket)
         self.stats.requests += 1
         self.stats.rows += int(q.shape[0])
@@ -152,8 +161,8 @@ class MicroBatcher:
 
     # -- drain -------------------------------------------------------------
 
-    def _execute(self, group: _Group, queries: List[np.ndarray],
-                 tickets: List[Ticket]) -> None:
+    def _execute(self, group: _Group, queries: List[np.ndarray], tickets: List[Ticket],
+                 texts: Optional[List[List[str]]] = None) -> None:
         """Run one coalesced chunk; a failure (stale collection, knobs the
         collection's backend rejects, ...) is delivered to THIS chunk's
         tickets — other groups and chunks are isolated and still execute."""
@@ -174,7 +183,11 @@ class MicroBatcher:
                 kw = dict(group.knobs)
                 if group.where is not None:
                     kw["where"] = group.where
-                scores, ids = index.search(qcat, k=group.k, **kw)
+                if texts is not None:
+                    tcat = [t for ts in texts for t in ts]
+                    scores, ids = index.search(qcat, tcat, k=group.k, **kw)
+                else:
+                    scores, ids = index.search(qcat, k=group.k, **kw)
             except Exception as e:  # noqa: BLE001 — re-raised at result()
                 obs.inc("batcher.errors", **labels)
                 for t in tickets:
@@ -197,19 +210,25 @@ class MicroBatcher:
         groups, self._groups = self._groups, {}
         executions = 0
         for group in groups.values():
+            hybrid = group.texts is not None
             chunk_q: List[np.ndarray] = []
             chunk_t: List[Ticket] = []
+            chunk_x: Optional[List[List[str]]] = [] if hybrid else None
             rows = 0
-            for q, t in zip(group.queries, group.tickets):
+            texts = group.texts if hybrid else [None] * len(group.queries)
+            for q, x, t in zip(group.queries, texts, group.tickets):
                 if chunk_q and rows + q.shape[0] > self.max_batch:
-                    self._execute(group, chunk_q, chunk_t)
+                    self._execute(group, chunk_q, chunk_t, chunk_x)
                     executions += 1
                     chunk_q, chunk_t, rows = [], [], 0
+                    chunk_x = [] if hybrid else None
                 chunk_q.append(q)
                 chunk_t.append(t)
+                if hybrid:
+                    chunk_x.append(x)
                 rows += int(q.shape[0])
             if chunk_q:
-                self._execute(group, chunk_q, chunk_t)
+                self._execute(group, chunk_q, chunk_t, chunk_x)
                 executions += 1
         if executions:
             self.stats.flushes += 1

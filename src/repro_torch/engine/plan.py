@@ -1,11 +1,12 @@
 """Search plans and the shape-bucketed plan cache (counterpart of
 ``repro/engine/plan.py``; DESIGN.md §7).
 
-Every search of a BruteForce or IVF index, static or mutated, runs through a
-``SearchPlan``: the whole query path (rotate the query under each segment's
-seed -> predicate mask -> per-segment scan, or coarse proxy / survivor top-m
-/ gathered rescore, or IVF probe / gathered scan / merge -> metric
-adjustment -> live mask -> stable top-k -> -1 marking),
+Every search of a BruteForce, IVF or HNSW index, static or mutated, runs
+through a ``SearchPlan``: the whole query path (rotate the query under each
+segment's seed -> predicate mask -> per-segment scan, or coarse proxy /
+survivor top-m / gathered rescore, or IVF probe / gathered scan / merge, or
+HNSW descent / beam / merge -> metric adjustment -> live mask -> stable
+top-k -> -1 marking),
 cached under
 
     (fingerprint incl. one signature per segment, shape bucket, k, device,
@@ -37,6 +38,16 @@ capture over another segment set first frees every graph of the old one, so
 an index never keeps graphs it can no longer replay.  A capture that fails
 raises: nothing falls back to eager execution.
 
+An HNSW plan's loops end when the data says so, which no graph can hold.
+Its stages are a ``Program`` and its ``_Graph`` several captured graphs
+over one set of static state tensors: the start (rotation, mask, first
+entry score), one block of ``Loop.block`` iterations for each loop (the
+greedy descent of each upper level, the level-0 beam), the stages between
+loops, and the finish.  A search replays each block until its loop's flag,
+copied to pinned host memory after the block, says no query has work left;
+the frozen-state semantics make a step past convergence change no byte, so
+the replays equal the eager stages whatever the number of blocks.
+
 The live mask (tombstones, allowlist and ``where_mask``) is an input of the
 plan, never part of its key, so ``delete()`` mints no plan and no graph.  A
 ``where=`` predicate over the index's metadata columns is a mask stage ANDed
@@ -46,8 +57,8 @@ of the index, and its constants are inputs of the graph (copied in before a
 replay, like the queries), so two predicates of one structure share one plan
 and one graph.  An IVF plan rotates, probes and scans the base segment
 (``ivf.search_stage``), scans each extra segment in full and merges
-(``segments.merge_stage``).  Tuned knobs are ROADMAP A11, sharded search A12
-and the stage observer A15.
+(``segments.merge_stage``), and an HNSW plan does the same after its beam.
+Tuned knobs are ROADMAP A11, sharded search A12 and the stage observer A15.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import torch
 from .. import obs
 from ..core import binary as bin_mod
 from ..core import bruteforce as bf_mod
+from ..core import hnsw as hnsw_mod
 from ..core import ivf as ivf_mod
 from ..core import predicate as pred
 from ..core import segments as seg
@@ -118,11 +130,58 @@ class PlanStats(obs.DeltaStats):
     evictions: int = 0
 
 
+def _pinned(like: torch.Tensor) -> torch.Tensor:
+    """A pinned host buffer of ``like``'s shape and dtype."""
+    return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+
+def _warm_up(dev: torch.device, fn: Callable) -> None:
+    """Run ``fn`` eagerly on a side stream and wait for it; its result is
+    discarded."""
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+
+
+def _wait() -> None:
+    """Wait for the current stream."""
+    torch.cuda.current_stream().synchronize()
+
+
+class _Captured:
+    """One captured CUDA graph: ``fn``'s outputs (its static tensors) and the
+    kernel launches one replay runs, added to the wrappers per replay."""
+
+    def __init__(self, fn: Callable, dev: torch.device) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), cuda_build.capture_tally() as tally, \
+                torch.cuda.graph(self.graph):
+            self.out = fn()
+        self.tally = dict(tally)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.tally.items():
+            wrapper.launches += n
+
+
 class _Graph:
-    """One captured CUDA graph of a plan over one set of bound tensors: its
+    """The captured CUDA graphs of a plan over one set of bound tensors: its
     static inputs (queries, valid rows, live mask, predicate constants) and
-    outputs, the bound tensors it holds, and the kernel launches one replay
-    runs."""
+    outputs, and the bound tensors it holds.
+
+    A plan of straight-line stages is one graph.  A plan with loops
+    (``SearchPlan.program``) is several, replayed in order and sharing one
+    set of static state tensors: the start and the stages before the first
+    loop, then for each loop a block of ``Loop.block`` iterations that
+    writes its state back in place, replayed until the loop's ``more``
+    flag, copied to pinned host memory after each block, reads False (a
+    step past convergence changes no byte), then the stages after it, the
+    last with the finish.  ``last_blocks`` holds the block replays of each
+    loop in the latest search."""
 
     def __init__(self, plan: "SearchPlan", call: "_Call", stats: PlanStats) -> None:
         arrays, bucket = call.arrays, plan.key.bucket
@@ -141,26 +200,103 @@ class _Graph:
         self.consts = tuple(torch.from_numpy(c.copy()).to(dev) for c in self.consts_host)
         # Pinned host buffers: the queries go in and the top-k comes out by
         # asynchronous copies, with one wait for the stream per search.
-        self.q_host = torch.empty((bucket, plan.dim), dtype=torch.float32, pin_memory=True)
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):      # warm-up; its result is discarded
-                plan.fn(self.q, self.q_valid, self.live, arrays, self.consts)
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with cuda_build.capture_tally() as tally, torch.cuda.graph(self.graph):
-                self.vals, self.pos = plan.fn(self.q, self.q_valid, self.live, arrays,
-                                              self.consts)
-        self.tally = dict(tally)
-        self.vals_host = torch.empty(self.vals.shape, dtype=self.vals.dtype, pin_memory=True)
-        self.pos_host = torch.empty(self.pos.shape, dtype=self.pos.dtype, pin_memory=True)
+        self.q_host = _pinned(self.q)
+        self.parts: list = []     # (_Captured, is a loop block), in replay order
+        self.last_blocks: list = []
+        if plan.program is None:
+            _warm_up(dev, lambda: plan.fn(self.q, self.q_valid, self.live, arrays, self.consts))
+            part = _Captured(lambda: plan.fn(self.q, self.q_valid, self.live, arrays,
+                                             self.consts), dev)
+            self.parts.append((part, False))
+            self.graph, self.tally = part.graph, part.tally    # the one graph, its launches
+            self.vals, self.pos = part.out
+        else:
+            # The warm-up runs every segment once, each block's steps included.
+            _warm_up(dev, lambda: self._segments(plan.program, arrays, lambda fn, loop: fn()))
+            self.graph = self.tally = None
+            self.vals, self.pos = self._segments(plan.program, arrays, self._capture_part(dev))
+            self.flag_host = _pinned(next(part for part, loop in self.parts if loop).out)
+        self.vals_host = _pinned(self.vals)
+        self.pos_host = _pinned(self.pos)
         stats.captures += 1
         obs.inc("plan_cache.captures")
+
+    def _capture_part(self, dev: torch.device) -> Callable:
+        def capture(fn: Callable, loop: bool):
+            part = _Captured(fn, dev)
+            self.parts.append((part, loop))
+            return part.out
+        return capture
+
+    def _segments(self, prog: "Program", arrays: tuple, run: Callable):
+        """Run ``prog`` on the static inputs as its replay segments, each
+        through ``run(fn, is_loop_block) -> fn's outputs``; returns (vals, pos)."""
+        items = list(prog.middle)
+        lead = []
+        while items and not isinstance(items[0], hnsw_mod.Loop):
+            lead.append(items.pop(0))
+
+        def first():
+            ctx, st = prog.start(self.q, self.q_valid, self.live, arrays, self.consts)
+            env = prog.env(ctx, arrays)
+            for stage in lead:
+                st = stage(env, st)
+            return ctx, st
+
+        ctx, st = run(first, False)
+        env = prog.env(ctx, arrays)
+        while True:
+            loop = items.pop(0)
+            stages = []
+            while items and not isinstance(items[0], hnsw_mod.Loop):
+                stages.append(items.pop(0))
+
+            def block(st=st, loop=loop):
+                new = st
+                for _ in range(loop.block):
+                    new = loop.step(env, new)
+                for old, t in zip(st, new):
+                    if t is not old:
+                        old.copy_(t)
+                return loop.more(st)
+
+            def after(st=st, stages=stages, last=not items):
+                for stage in stages:
+                    st = stage(env, st)
+                return prog.finish(ctx, st, arrays) if last else st
+
+            run(block, True)
+            if not items:
+                return run(after, False)
+            st = run(after, False)
 
     def reads(self, arrays: tuple) -> bool:
         """Whether this graph was captured over exactly these tensors."""
         return _same_tensors(arrays, self.arrays)
+
+    def replay_parts(self, blocks: Optional[Sequence[int]] = None) -> None:
+        """Replay every part in order: each loop's block until its flag
+        reads False, or ``blocks[i]`` times for the i-th loop with no check
+        (the latest search's counts, to time the device alone)."""
+        counts = []
+        for part, loop in self.parts:
+            if not loop:
+                part.replay()
+                continue
+            n = 0
+            while True:
+                part.replay()
+                n += 1
+                if blocks is not None:
+                    if n == blocks[len(counts)]:
+                        break
+                    continue
+                self.flag_host.copy_(part.out, non_blocking=True)
+                _wait()
+                if not bool(self.flag_host):
+                    break
+            counts.append(n)
+        self.last_blocks = counts
 
     def replay(self, call: "_Call"):
         """The top-k (vals, pos) of rows [:b], on the host."""
@@ -185,12 +321,10 @@ class _Graph:
             if not np.array_equal(self.consts_host[i], c):
                 self.consts[i].copy_(torch.from_numpy(np.array(c)))
                 self.consts_host[i] = np.array(c)
-        self.graph.replay()
-        for wrapper, n in self.tally.items():
-            wrapper.launches += n
+        self.replay_parts()
         self.vals_host.copy_(self.vals, non_blocking=True)
         self.pos_host.copy_(self.pos, non_blocking=True)
-        torch.cuda.current_stream().synchronize()
+        _wait()
         return self.vals_host[:b].clone(), self.pos_host[:b].clone()
 
 
@@ -217,16 +351,39 @@ def _on_card(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """The stages of a plan that holds data-dependent loops (HNSW):
+    ``start(q, q_valid, live, arrays, consts) -> (ctx, state)``, ``env(ctx,
+    arrays)`` the tensors the middle reads, ``middle`` stages ``(env, state)
+    -> state`` and ``hnsw.Loop``s, in order (at least one loop), and
+    ``finish(ctx, state, arrays) -> (vals, pos)``.  On the card each loop
+    runs as replays of a captured block of its steps (``_Graph``)."""
+
+    start: Callable
+    env: Callable
+    middle: tuple
+    finish: Callable
+
+    def run(self, q, q_valid, live, arrays, consts):
+        """The stages eagerly, each loop checked on the host every step."""
+        ctx, st = self.start(q, q_valid, live, arrays, consts)
+        st = hnsw_mod.run_middle(self.middle, self.env(ctx, arrays), st)
+        return self.finish(ctx, st, arrays)
+
+
 @dataclasses.dataclass
 class SearchPlan:
     """One search configuration: ``fn(q, q_valid, live, arrays, consts) ->
-    (vals, pos)`` runs its stages eagerly.  The plan holds no tensor and no
-    graph: the graphs live with the index (``execute``'s ``graphs``)."""
+    (vals, pos)`` runs its stages eagerly; a plan with loops also carries
+    them as a ``Program`` (``fn`` is its ``run``).  The plan holds no tensor
+    and no graph: the graphs live with the index (``execute``'s ``graphs``)."""
 
     key: PlanKey
     fn: Callable
     dim: int
     n_total: int
+    program: Optional[Program] = None
 
     def execute(self, call: "_Call", graphs: Dict[PlanKey, _Graph], cache: "PlanCache"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -340,8 +497,10 @@ def _enc_sig(enc) -> tuple:
 
 
 _BACKEND_KNOBS = {bf_mod.BruteForceIndex: frozenset({"rescore_mult"}),
-                  ivf_mod.IvfFlatIndex: frozenset({"nprobe"})}
+                  ivf_mod.IvfFlatIndex: frozenset({"nprobe"}),
+                  hnsw_mod.HnswIndex: frozenset({"ef"})}
 _IVF_NPROBE = 8      # the default nprobe
+_HNSW_EF = 64        # the default beam width
 
 
 def _validate_knobs(backend: Any, kwargs: dict) -> None:
@@ -352,7 +511,9 @@ def _validate_knobs(backend: Any, kwargs: dict) -> None:
 
 
 def _normalize_knobs(backend: Any, extras: Sequence[Any], kwargs: dict, k: int) -> dict:
-    """IVF: ``nprobe`` (default 8) clamped to ``nlist``.  BruteForce:
+    """IVF: ``nprobe`` (default 8) clamped to ``nlist``.  HNSW: ``ef``
+    (default 64) widened to ``max(ef, k)``, since only beam members can
+    enter the result set.  BruteForce:
     ``rescore_mult=r > 0`` selects the binarized cascade with m = r*k
     survivors per segment; None or 0 is the full scan, a negative one or an
     index without coarse codes raises, and when every segment would rescore
@@ -364,6 +525,9 @@ def _normalize_knobs(backend: Any, extras: Sequence[Any], kwargs: dict, k: int) 
         if nprobe < 1:
             raise ValueError(f"nprobe must be >= 1, got {nprobe}")
         return {"nprobe": min(nprobe, backend.nlist)}
+    if isinstance(backend, hnsw_mod.HnswIndex):
+        ef = kwargs.get("ef")
+        return {"ef": max(_HNSW_EF if ef is None else int(ef), k)}
     rm = kwargs.get("rescore_mult")
     rm = 0 if rm is None else int(rm)
     if rm < 0:
@@ -396,14 +560,20 @@ def _fingerprint(backend: Any, extras: Sequence[Any], knobs: dict) -> tuple:
     head: tuple = (type(backend).__name__, backend.enc.metric, segs)
     if isinstance(backend, ivf_mod.IvfFlatIndex):
         head += ((backend.nlist, backend.max_candidates(knobs["nprobe"])),)
+    elif isinstance(backend, hnsw_mod.HnswIndex):
+        head += ((backend.m, backend.entry_point, backend.max_level,
+                  int(backend.neighbors0.shape[1])),)
     return head
 
 
-def _ivf_head(backend: Any) -> tuple:
-    """The IVF lists a plan reads ahead of its segments' tensors
-    (centroids, order, offsets); none for BruteForce."""
+def _head(backend: Any) -> tuple:
+    """The backend's tensors a plan reads ahead of its segments' tensors:
+    IVF's lists (centroids, order, offsets), HNSW's neighbour tables
+    (level 0, the upper levels or None); none for BruteForce."""
     if isinstance(backend, ivf_mod.IvfFlatIndex):
         return backend.centroids, backend.order_t, backend.offsets_t
+    if isinstance(backend, hnsw_mod.HnswIndex):
+        return backend.nbr0_t, backend.nbr_hi_t
     return ()
 
 
@@ -419,7 +589,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
     The closure holds only scalars (seeds, shapes, metric) and the
     predicate's structure, never a segment or a constant, so a plan in the
     LRU pins no index; the tensors come in as ``arrays`` (``_bind_arrays``:
-    the IVF head, (packed, qnorms[, ccodes]) per segment, the base's
+    the IVF or HNSW head, (packed, qnorms[, ccodes]) per segment, the base's
     permutation index or None, then one metadata key plane per predicate
     leaf) and the predicate's constant keys as ``consts``.
     """
@@ -431,7 +601,8 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
     n_total, n_segs, k = offsets[-1], len(seeds), key.k
     is_ivf = isinstance(backend, ivf_mod.IvfFlatIndex)
     cascade = "rescore_mult" in knobs
-    n_head = len(_ivf_head(backend))
+    is_hnsw = isinstance(backend, hnsw_mod.HnswIndex)
+    n_head = len(_head(backend))
     at_perm = n_head + (3 if cascade else 2) * n_segs
     where_fn = None if where is None else pred.build_stage_fn(where)
 
@@ -455,6 +626,17 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
     def finish(q_valid, vals, pos):
         vals = torch.where(q_valid[:, None], vals, _NEG)
         return vals, torch.where(vals > _NEG, pos, -1)
+
+    def merge_extras(vals, pos, live, rots, arrays):
+        """The extra segments' full scans, masked and merged into the base
+        segment's candidate-set top-k (IVF, HNSW)."""
+        if n_segs == 1:
+            return vals, pos
+        side = torch.cat([adjust_scores(
+            bf_mod.scan_stage(rots[i], arrays[n_head + 2 * i], bits=bits, n4_dims=n4),
+            arrays[n_head + 1 + 2 * i], metric) for i in range(1, n_segs)], dim=1)
+        side.masked_fill_(~live[None, seg_ns[0]:], _NEG)
+        return seg.merge_stage(vals, pos, side, seg_ns[0], k)
 
     if cascade:
         kind = enc0.coarse
@@ -494,14 +676,31 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
                 rots[0], centroids, order, offs, arrays[n_head], arrays[n_head + 1],
                 live[:base_n], k=k,
                 nprobe=nprobe, max_cand=max_cand, metric=metric, bits=bits, n4_dims=n4)
-            if n_segs > 1:     # the extra segments: full scans, merged
-                side = torch.cat([adjust_scores(
-                    bf_mod.scan_stage(rots[i], arrays[n_head + 2 * i], bits=bits,
-                                      n4_dims=n4),
-                    arrays[n_head + 1 + 2 * i], metric) for i in range(1, n_segs)], dim=1)
-                side.masked_fill_(~live[None, base_n:], _NEG)
-                vals, pos = seg.merge_stage(vals, pos, side, base_n, k)
-            return finish(q_valid, vals, pos)
+            return finish(q_valid, *merge_extras(vals, pos, live, rots, arrays))
+    elif is_hnsw:
+        base_n = seg_ns[0]
+        h_start, h_middle, h_finish = hnsw_mod.search_program(
+            entry=backend.entry_point, ef=knobs["ef"], k=k, metric=metric, bits=bits,
+            n4_dims=n4, max_level=backend.max_level)
+
+        def start(q, q_valid, live, arrays, consts):
+            live = masked_live(live, arrays, consts)
+            ctx = (q_valid, live, *rotate(q, arrays[at_perm]))
+            return ctx, h_start(env(ctx, arrays))
+
+        def env(ctx, arrays):
+            """hnsw's stage environment: the base segment's rotated queries,
+            codes and norms, the neighbour tables, its live rows, q_valid."""
+            return (ctx[2], arrays[n_head], arrays[n_head + 1], arrays[0], arrays[1],
+                    ctx[1][:base_n], ctx[0])
+
+        def end(ctx, st, arrays):
+            vals, pos = h_finish(env(ctx, arrays), st)
+            return finish(ctx[0], *merge_extras(vals, pos, ctx[1], ctx[2:], arrays))
+
+        program = Program(start=start, env=env, middle=h_middle, finish=end)
+        return SearchPlan(key=key, fn=program.run, dim=enc0.dim, n_total=n_total,
+                          program=program)
     else:
         def fn(q, q_valid, live, arrays, consts):
             live = masked_live(live, arrays, consts)
@@ -520,7 +719,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
 def _bind_arrays(backend: Any, extras: Sequence[Any], with_codes: bool,
                  where_cols: tuple = ()) -> tuple:
     """The tensors a plan reads, in ``fn``'s order."""
-    out = list(_ivf_head(backend))
+    out = list(_head(backend))
     for enc in [backend.enc] + [s.enc for s in extras]:
         out.extend((enc.packed, enc.qnorms, enc.ccodes) if with_codes
                    else (enc.packed, enc.qnorms))

@@ -260,14 +260,17 @@ def test_garbage_tail_raises(tmp_path):
 
 @pytest.mark.parametrize("index,roadmap", [("ivf", "ROADMAP A7"), ("hnsw", "ROADMAP A8")])
 def test_unported_indexes_raise(index, roadmap):
-    """HNSW raises naming A8; IVF (A7) is ported and builds and searches."""
+    """Both are ported (IVF A7, HNSW A8): each builds and finds its own rows;
+    an unknown index or build knob still raises."""
     x = np.random.RandomState(3).randn(40, 8).astype(np.float32)
     if index == "hnsw":
-        with pytest.raises(NotImplementedError, match=roadmap):
-            MonaVec.build(x, index=index, device="cpu")
+        idx = MonaVec.build(x, index=index, m=4, ef_construction=16, device="cpu")
+        scores, ids = idx.search(x[:3], 5, ef=40)
+        with pytest.raises(TypeError, match="unexpected build kwargs"):
+            MonaVec.build(x, index=index, nlist=4, device="cpu")
     else:
         idx = MonaVec.build(x, index=index, nlist=4, train_iters=3, device="cpu")
         scores, ids = idx.search(x[:3], 5, nprobe=4)
-        assert ids[:, 0].tolist() == [0, 1, 2] and scores.shape == (3, 5)
+    assert ids[:, 0].tolist() == [0, 1, 2] and scores.shape == (3, 5)
     with pytest.raises(ValueError, match="unknown index"):
         MonaVec.build(np.zeros((4, 8), np.float32), index="annoy", device="cpu")

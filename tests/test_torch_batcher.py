@@ -142,19 +142,39 @@ def test_max_batch_splits_whole_requests():
 
 @pytest.mark.parametrize("what,item", [("where", "A6"), ("text", "A10")])
 def test_unported_requests_raise_at_submit(what, item):
-    """``text=`` raises naming A10 at submit.  ``where=`` (A6) is ported:
+    """Both request kinds are ported (A6, A10) and coalesce.  ``where=``:
     equal predicates coalesce into one execution, other constants form
-    another group, and each request gets its solo filtered search."""
+    another group, and each request gets its solo filtered search.
+    ``text=`` (a HybridIndex collection): hybrid requests coalesce into one
+    execution with their texts in submission order, each request gets its
+    rows of the direct batched hybrid search, and a dense-only request to
+    the same collection forms a group of its own."""
+    from repro_torch.core.hybrid import HybridIndex
     from repro_torch.core.predicate import Eq
 
     rng = np.random.RandomState(47)
-    if what == "text":
-        mb = engine.MicroBatcher(_registry({"a": _vecs(rng, 10)}))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            mb.submit("a", "docs", _vecs(rng, 1), **{what: "x"})
-        assert mb.pending == 0
-        return
     reg = TenantRegistry()
+    if what == "text":
+        docs = [f"doc {i} " + ("alpha" if i % 2 else "beta") for i in range(30)]
+        hy = HybridIndex.build(_vecs(rng, 30), docs, device="cpu")
+        reg.put("a", "docs", hy)
+        mb = engine.MicroBatcher(reg)
+        q = _vecs(rng, 3)
+        t1 = mb.submit("a", "docs", q[:2], k=4, text=["alpha", "beta"])
+        t2 = mb.submit("a", "docs", q[2:3], k=4, text="alpha doc")
+        assert mb.pending == 2 and mb.flush() == 1
+        s_d, i_d = hy.search(q, ["alpha", "beta", "alpha doc"], 4)
+        assert t1.result()[1].tobytes() == i_d[:2].tobytes()
+        assert t2.result()[0].tobytes() == s_d[2:].tobytes()
+        ta = mb.submit("a", "docs", q[:1], k=4, text="alpha")
+        tb = mb.submit("a", "docs", q[:1], k=4)
+        assert mb.flush() == 2
+        ta.result()
+        with pytest.raises(TypeError):
+            tb.result()         # HybridIndex.search requires query_text
+        with pytest.raises(ValueError, match="texts"):
+            mb.submit("a", "docs", q[:2], k=4, text=["only one"])
+        return
     index = MonaVec.build(_vecs(rng, 30), meta={"g": np.arange(30) % 3}, device="cpu")
     reg.put("a", "docs", index)
     mb = engine.MicroBatcher(reg)
