@@ -159,6 +159,27 @@ Phases, in order (any failure exits non-zero and prints no result line):
    equal to the CPU plain path's; ``MicroBatcher`` ``text=`` requests in
    one execution; batch latency split into the dense replay and the host
    BM25 + RRF.
+9. recall-targeted autotune through the engine's graphs (every rung, oracle
+   and boost probe a replay), each sweep between a reset and a read of the
+   launch counters, with its seconds, captures and ``memory_reserved``
+   before, after and after a gc.  9a: IVF over the phase-4 corpus with phase
+   7a's columns (nlist 64), ``autotune(0.95, k=10, n_queries=32)``: the
+   nprobe ladder with nprobe = nlist at recall 1.0 exactly, the boost
+   curve, a second autotune equal, v11 files byte-identical, the loaded
+   index resolving and searching with the tuned nprobe, the chosen and
+   ceiling rungs against the CPU plain path of the card-written file (0.01,
+   99%), a ~1% ``where=`` search boosted (``engine.boost_applied``) and
+   byte-equal to the allowlist oracle at the boosted nprobe, its exact
+   count the host's, and no capture after a warm-up (the stand-in meets
+   0.95 only at nprobe = nlist, which leaves nothing to boost, so a second
+   sweep at a 0.7 target drives the boost).  9b: the same on the
+   sign cascade's rescore_mult ladder, whose last rung collapses to the
+   full-scan plan.  9c (run inside phase 8, on the 8a index): the ef ladder
+   10 .. 1024, the ef 1024 rung's beam iterations and device time, its
+   recall@10 against exact, level-0 reachability.  9d: the reference's
+   autotune benchmark at its smoke shape on the legacy threefry stream,
+   card and CPU plain path: equal TuneResults, recalls 0.9625 / 0.55 / 1.0,
+   tuned and safe batch latency.
 
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -176,6 +197,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -186,6 +208,10 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# The CPU plain paths compared against below run MKL; one code path on every
+# host makes their figures the same from host to host (ROADMAP C, C1).
+# Set before torch is imported.
+os.environ.setdefault("MKL_CBWR", "AVX2")
 
 # H100 SXM data-sheet peaks (dense, 700 W): HBM3 bandwidth, the non-tensor
 # f32 rate and the int8 tensor-core rate.
@@ -232,6 +258,9 @@ HNSW_SMALL = 2048                      # 8b / 8d: the defaults (recommended_m, 1
 HNSW_2BIT_N = 1024                     # 8d: a 2-bit HNSW (B5, and B3 after an add)
 HNSW_ADD, HNSW_DELETE = 512, 200       # 8d
 HNSW_FILTER_EF = 128                   # 8c: the reference's filtered-HNSW test's ef
+# Phase 9: autotune(recall_target, k, n_queries), the reference's defaults.
+TUNE_TARGET, TUNE_K, TUNE_QUERIES = 0.95, 10, 32
+BOOST_TARGET = 0.7     # 9a: a target the stand-in's IVF meets below nprobe = nlist
 HYBRID_WORDS = ("report", "market", "team", "season", "price", "study", "city", "data",
                 "café", "naïve", "straße", "北京", "東京", "données", "über", "año")
 
@@ -540,6 +569,23 @@ def lifecycle_phase(torch, np, dev, corpus, queries, say, expect) -> dict:
     return out
 
 
+def filter_columns(np, rng, n: int) -> dict:
+    """Phase 7a's metadata columns for ``n`` rows, drawn from ``rng``: an
+    8-value str column, an int date and a float price."""
+    return {"lang": np.array(LANGS)[rng.integers(0, len(LANGS), n)],
+            "date": rng.integers(0, 1_000_000, n), "price": rng.standard_normal(n)}
+
+
+def planted_columns(np, rng) -> dict:
+    """``filter_columns`` of the N corpus rows with edge values planted
+    (int64 min and max, -0.0, +0.0 and both infinities)."""
+    i64 = np.iinfo(np.int64)
+    cols = filter_columns(np, rng, N)
+    cols["date"][:2] = [i64.min, i64.max]
+    cols["price"][2:6] = [-0.0, 0.0, np.inf, -np.inf]
+    return cols
+
+
 def filter_ivf_phase(c) -> dict:
     """Phase 7: metadata columns and where= predicates on the phase-4 corpus
     (full scan and sign cascade, static and after add + delete), the IVF
@@ -565,12 +611,9 @@ def filter_ivf_phase(c) -> dict:
     i64 = np.iinfo(np.int64)
 
     def columns(n: int) -> dict:
-        return {"lang": np.array(LANGS)[rng.integers(0, len(LANGS), n)],
-                "date": rng.integers(0, 1_000_000, n), "price": rng.standard_normal(n)}
+        return filter_columns(np, rng, n)
 
-    cols = columns(N)
-    cols["date"][:2] = [i64.min, i64.max]
-    cols["price"][2:6] = [-0.0, 0.0, np.inf, -np.inf]
+    cols = planted_columns(np, rng)
     preds = {"eq_lang": Eq("lang", "en"),                                  # ~12.5%
              "lang_date": Eq("lang", "en") & Lt("date", 80_000),           # ~1%
              "price_or_lang": Ge("price", 0.0) | In("lang", ["de", "fr"]),  # ~60%
@@ -1257,9 +1300,13 @@ def hnsw_hybrid_phase(c) -> dict:
         f"device {dev192:.4f} ms (blocks {blocks192})")
     out["timing"]["ef192"] = {"latency": lat192, "graph_device_ms": dev192,
                               "device_blocks": blocks192}
+    say(f"phase 8e: {time.perf_counter() - t_phase:.1f} s")
+    # Phase 9c tunes the 8a index before it is dropped (its graph took a
+    # minute of host work to build).
+    out["tune"] = hnsw_tune_phase(c, h, sub, exact, recall, run)
+    t_phase = time.perf_counter()
     del full4, cpu_h, h, be
     torch.cuda.empty_cache()
-    say(f"phase 8e: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 8b. determinism at the defaults -------------------------------------------
     t_phase = time.perf_counter()
@@ -1474,6 +1521,403 @@ def hnsw_hybrid_phase(c) -> dict:
     return out
 
 
+def tune_sweep(c, index, label: str, target: float = TUNE_TARGET) -> dict:
+    """``index.autotune`` at phase 9's arguments (recall ``target``) between
+    a reset and a read of the kernels' counters: its seconds, launches,
+    plan-cache captures, the reserved card memory before and after the
+    sweep and after a gc and ``empty_cache``, and the result (ladder,
+    chosen knob, boost curve)."""
+    torch = c.torch
+    from repro_torch import engine
+
+    cache = engine.plan_cache()
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_reserved()]
+    before = cache.stats.snapshot()
+    c.reset_counts()
+    t0 = time.perf_counter()
+    index.autotune(recall_target=target, k=TUNE_K, n_queries=TUNE_QUERIES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = c.read_counts()
+    delta = cache.stats.since(before)
+    mem.append(torch.cuda.memory_reserved())
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem.append(torch.cuda.memory_reserved())
+    t = index.tuned
+    ((knob, rungs),) = t.ladder.items()
+    out = {"seconds": secs, "launches": launches, "captures": delta.captures,
+           "plans": delta.misses, "evictions": delta.evictions,
+           "reserved_mib": [m / 2 ** 20 for m in mem], "graphs_held": len(index.backend.graphs),
+           "knob": knob, "chosen": t.knobs[knob], "met_target": t.met_target,
+           "ladder": [[r.value, r.recall] for r in rungs],
+           "boost": None if t.boost is None else [[p.selectivity, p.mult, p.recall]
+                                                  for p in t.boost.points]}
+    say(f"{label}: autotune(recall_target={target}, k={TUNE_K}, n_queries={TUNE_QUERIES}) "
+        f"{secs:.3f} s; {knob} ladder {[(v, round(r, 6)) for v, r in out['ladder']]}; chosen "
+        f"{out['chosen']} (met_target {t.met_target}); boost (selectivity, mult, recall) "
+        f"{out['boost']}; captures {delta.captures}, new plans {delta.misses}, evictions "
+        f"{delta.evictions}, graphs the index holds {out['graphs_held']}; memory_reserved "
+        f"{mem[0] / 2 ** 20:.1f} -> {mem[1] / 2 ** 20:.1f} MiB, after gc and empty_cache "
+        f"{mem[2] / 2 ** 20:.1f} MiB; launches {launches}")
+    return out
+
+
+def held_graph_mib(c, index) -> tuple:
+    """(graphs ``index`` holds, the reserved card memory in MiB that
+    dropping them frees), after a gc and ``empty_cache``; the graphs are
+    gone after."""
+    torch = c.torch
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    n = len(index.backend.graphs)
+    index.backend.graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n, (before - torch.cuda.memory_reserved()) / 2 ** 20
+
+
+def tune_checks(c, index, sweep: dict, td: Path, name: str) -> dict:
+    """Phase 9's checks of a tuned index: a second autotune gives an equal
+    result; v11 files: two saves hash equal, save -> load -> save byte-equal;
+    the loaded index resolves the tuned knob and searches as with it given
+    explicitly; the chosen and ceiling rungs on the card against the CPU
+    plain path of the card-written file over the sample queries (each side
+    against its own full-scan oracle)."""
+    np = c.np
+    from repro_torch import MonaVec
+    from repro_torch.core.bruteforce import BruteForceIndex
+    from repro_torch.engine.plan import search_backend
+    from repro_torch.tune import measure_recall, sample_queries
+
+    first = index.tuned
+    knob, chosen = sweep["knob"], sweep["chosen"]
+    again = tune_sweep(c, index, f"{name} again")
+    out = {"again_equal": index.tuned == first, "again_captures": again["captures"],
+           "again_seconds": again["seconds"]}
+    index.tuned = first
+    paths = [td / f"{name}-{i}.mvec" for i in range(3)]
+    index.save(str(paths[0]))
+    index.save(str(paths[1]))
+    back = MonaVec.load(str(paths[0]))
+    back.save(str(paths[2]))
+    raw = [p.read_bytes() for p in paths]
+    out["v11_identical"] = raw[0][4] == 11 and raw[0] == raw[1] == raw[2]
+    qb = c.queries[:64]
+    out["loaded_resolves"] = (back.tuned == first
+                              and back.resolved_knobs(TUNE_K) == {knob: chosen})
+    out["loaded_search_explicit"] = (
+        same_result(back.search(qb, k=TUNE_K), back.search(qb, k=TUNE_K, **{knob: chosen}))
+        and same_result(back.search(qb, k=TUNE_K), index.search(qb, k=TUNE_K)))
+    del back
+    cpu = MonaVec.load(str(paths[0]), device="cpu")
+    qs = sample_queries(index, TUNE_QUERIES, first.seed)
+
+    def oracle(ix):
+        return search_backend(BruteForceIndex(enc=ix.backend.enc, ids=ix.backend.ids), None,
+                              qs, TUNE_K)[1]
+
+    gold_card, gold_cpu = oracle(index), oracle(cpu)
+    ladder = dict((v, r) for v, r in sweep["ladder"])
+    out["cpu"] = {}
+    for v in sorted({chosen, sweep["ladder"][-1][0]}):
+        card_ids = index.search(qs, TUNE_K, **{knob: v})[1]
+        cpu_ids = cpu.search(qs, TUNE_K, **{knob: v})[1]
+        e = {"recall_card": measure_recall(card_ids, gold_card),
+             "recall_ladder": ladder[v], "recall_cpu": measure_recall(cpu_ids, gold_cpu),
+             "ids_equal_cpu": float(np.mean(card_ids == cpu_ids))}
+        out["cpu"][v] = e
+        c.expect(abs(e["recall_card"] - e["recall_cpu"]) <= 0.01
+                 and e["ids_equal_cpu"] >= 0.99 and e["recall_card"] == ladder[v],
+                 f"{name} {knob}={v}: the card's rung is not the CPU plain path's or the "
+                 f"ladder's")
+    say(f"{name}: second autotune equal {out['again_equal']} ({again['captures']} captures, "
+        f"{again['seconds']:.3f} s); v11 two saves and save -> load -> save byte-identical "
+        f"{out['v11_identical']}; loaded index resolves {knob}={chosen} "
+        f"{out['loaded_resolves']} and searches as with it explicit "
+        f"{out['loaded_search_explicit']}; card against the CPU plain path of the card-written "
+        f"file over the {len(qs)} sample queries {out['cpu']}")
+    c.expect(out["again_equal"] and out["v11_identical"] and out["loaded_resolves"]
+             and out["loaded_search_explicit"], f"{name}: a repeat, file or reload check failed")
+    del cpu
+    return out
+
+
+def boost_checks(c, index, knob: str, p, label: str, must_boost: bool) -> dict:
+    """A ``where=`` search of the tuned ``index`` at ~1% selectivity: the
+    exact count equals the host count, the boost is applied once a search
+    when the curve's multiplier exceeds 1 (``engine.boost_applied``; with
+    ``must_boost`` it must), the ids are the ``Allowlist(evaluate mask)``
+    oracle's at the boosted knob byte for byte, and after a warm-up 10
+    tuned and 10 boosted searches capture nothing."""
+    torch, np, dev = c.torch, c.np, c.dev
+    from repro_torch import engine, obs
+    from repro_torch.core import predicate as pr
+    from repro_torch.core.allowlist import Allowlist
+    from repro_torch.tune import estimate_matches
+
+    t = index.tuned
+    mask = pr.evaluate(p, index.meta)
+    matched = estimate_matches(p, index.meta, device=dev)
+    mult = 1 if t.boost is None else t.boost.multiplier(matched / index.n_total)
+    boosted = index.resolved_knobs(TUNE_K, **{knob: t.knobs[knob] * mult}) or {knob: 0}
+    snap = obs.registry().snapshot()
+    c.reset_counts()
+    got = [index.search(c.queries[64 * i: 64 * (i + 1)], k=TUNE_K, where=p)
+           for i in range(BATCHES)]
+    torch.cuda.synchronize()
+    launches = c.read_counts()
+    applied = obs.counter_total(obs.counter_deltas(obs.registry().snapshot(), snap),
+                                "engine.boost_applied")
+    allow = Allowlist(mask=mask, n_allowed=int(mask.sum()))
+    want = [index.search(c.queries[64 * i: 64 * (i + 1)], k=TUNE_K, allow=allow, **boosted)
+            for i in range(BATCHES)]
+    equal = all(same_result(a, b) for a, b in zip(got, want))
+    cache = engine.plan_cache()
+    tuned_s, boosted_s = index.searcher(k=TUNE_K), index.searcher(k=TUNE_K, where=p)
+    tuned_s(c.queries[:64])
+    boosted_s(c.queries[:64])
+    before = cache.stats.snapshot()
+    for i in range(BATCHES):
+        tuned_s(c.queries[64 * i: 64 * (i + 1)])
+        boosted_s(c.queries[64 * i: 64 * (i + 1)])
+    after = cache.stats.since(before)
+    out = {"share": float(mask.mean()), "matched": matched, "host_count": int(mask.sum()),
+           "mult": mult, "boosted_knobs": boosted, "applied": applied, "oracle_equal": equal,
+           "launches": launches, "captures_after_warmup": after.captures,
+           "plans_after_warmup": after.misses}
+    say(f"{label}: where= at {out['share']:.4%} of rows: estimate_matches {matched} = host "
+        f"count {out['host_count']}; multiplier {mult} -> {boosted}, boost_applied {applied} "
+        f"of {BATCHES} searches; ids and scores = the allowlist oracle's at the boosted knob "
+        f"{equal}; 10 tuned + 10 boosted searches after a warm-up: captures {after.captures}, "
+        f"new plans {after.misses}; launches {launches}")
+    c.expect(matched == out["host_count"] and (mult > 1 or not must_boost)
+             and applied == (BATCHES if mult > 1 else 0) and equal,
+             f"{label}: the boost is not applied or not the oracle's")
+    c.expect(after.captures == 0 and after.misses == 0,
+             f"{label}: tuned or boosted searches captured after the warm-up")
+    return out
+
+
+def autotune_phase(c) -> dict:
+    """Phase 9 (a, b, d): recall-targeted autotune through the engine's
+    graphs: IVF at full width with the selectivity boost (9a), the sign
+    cascade's rescore_mult ladder (9b), and the reference's autotune
+    benchmark at its smoke shape, card against the CPU plain path (9d).
+    9c (HNSW) runs inside phase 8 on its index (``hnsw_tune_phase``)."""
+    torch, np, dev = c.torch, c.np, c.dev
+    from repro_torch import MonaVec
+    from repro_torch.core import rhdh
+    from repro_torch.core.predicate import Eq, Lt
+    from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
+
+    corpus, expect = c.corpus, c.expect
+    out: dict = {"launches": {}}
+    tdir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    td = Path(tdir.name)
+    one_pct = Eq("lang", "en") & Lt("date", 80_000)      # phase 7a's ~1% predicate
+    cols = planted_columns(np, np.random.default_rng(SEED + 7))
+
+    # ---- 9a. IVF at full width, with the boost ------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = MonaVec.build(corpus, meta=cols, index="ivf", nlist=IVF_NLIST,
+                        train_iters=IVF_TRAIN_ITERS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sweep = tune_sweep(c, ivf, "9a ivf")
+    out["launches"]["9a_sweep"] = sweep["launches"]
+    got = sweep["launches"]
+    expect(got["fwht"] > 0 and got["gather_nibble_dot"] > 0 and got["nibble_dot"] > 0,
+           f"9a: the sweep did not run B2, B4 and the oracle's B1 ({got})")
+    expect(sweep["ladder"][-1] == [IVF_NLIST, 1.0],
+           f"9a: the ceiling rung nprobe={IVF_NLIST} is not exactly 1.0")
+    out["ivf"] = {"build_s": build_s, "sweep": sweep,
+                  "checks": tune_checks(c, ivf, sweep, td, "9a ivf")}
+    out["ivf"]["boost"] = boost_checks(c, ivf, "nprobe", one_pct, "9a ivf boost",
+                                       sweep["chosen"] < IVF_NLIST)
+    # At 0.95 the stand-in needs every cell (nprobe = nlist, nothing left to
+    # boost), so a sweep at a lower target drives the boost at this width.
+    low = tune_sweep(c, ivf, "9a ivf, boost sweep", target=BOOST_TARGET)
+    out["launches"]["9a_boost_sweep"] = low["launches"]
+    out["ivf"]["boost_sweep"] = low
+    out["ivf"]["boost_low"] = boost_checks(c, ivf, "nprobe", one_pct, "9a ivf boost at "
+                                           f"{BOOST_TARGET}", True)
+    out["launches"]["9a_boosted"] = out["ivf"]["boost_low"]["launches"]
+    out["ivf"]["graphs_held"], out["ivf"]["graphs_mib"] = held_graph_mib(c, ivf)
+    say(f"9a: the index's {out['ivf']['graphs_held']} graphs hold "
+        f"{out['ivf']['graphs_mib']:.1f} MiB of reserved card memory")
+    del ivf
+    say(f"phase 9a: {time.perf_counter() - t_phase:.1f} s (build {build_s:.3f} s)")
+
+    # ---- 9b. the sign cascade's rescore_mult ladder ---------------------------------
+    t_phase = time.perf_counter()
+    cas = MonaVec.build(corpus, meta=cols, coarse="sign")
+    sweep = tune_sweep(c, cas, "9b sign cascade")
+    out["launches"]["9b_sweep"] = sweep["launches"]
+    got = sweep["launches"]
+    last = sweep["ladder"][-1]
+    expect(all(got[k] > 0 for k in ("fwht", "sign_hamming", "gather_nibble_dot", "nibble_dot")),
+           f"9b: the sweep did not run B2, B6, B4 and B1 ({got})")
+    expect(last[0] * TUNE_K >= N and last[1] == 1.0
+           and cas.resolved_knobs(TUNE_K, rescore_mult=last[0]) == {},
+           f"9b: the collapse rung {last} is not the full-scan plan at recall 1.0")
+    out["cascade"] = {"sweep": sweep, "checks": tune_checks(c, cas, sweep, td, "9b sign")}
+    out["cascade"]["boost"] = boost_checks(c, cas, "rescore_mult", one_pct, "9b sign boost",
+                                           False)
+    out["launches"]["9b_boosted"] = out["cascade"]["boost"]["launches"]
+    out["cascade"]["graphs_held"], out["cascade"]["graphs_mib"] = held_graph_mib(c, cas)
+    say(f"9b: the index's {out['cascade']['graphs_held']} graphs hold "
+        f"{out['cascade']['graphs_mib']:.1f} MiB of reserved card memory")
+    del cas
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 9b: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 9d. the reference's autotune benchmark, smoke shape ------------------------
+    # benchmarks/autotune_bench.py:84-87 (n 8,192, d 64, 8 queries, nlist 64),
+    # on the legacy threefry stream benchmarks/baselines/ was written on.
+    t_phase = time.perf_counter()
+    n_b, d_b, nlist_b, bq_n = 8192, 64, 64, 8
+    b_corpus = embedding_corpus(97, n_b, d_b)
+    attr = np.random.RandomState(97).randint(0, 100, size=n_b).astype(np.int64)
+    bq = queries_from_corpus(b_corpus, 197, bq_n)
+    stream = rhdh.THREEFRY_PARTITIONABLE
+    rhdh.THREEFRY_PARTITIONABLE = False
+    runs = {}
+    try:
+        for side, device in (("card", dev), ("cpu", "cpu")):
+            idx = MonaVec.build(b_corpus, metric="cosine", index="ivf", nlist=nlist_b,
+                                meta={"attr": attr}, device=device)
+            c.reset_counts()
+            t0 = time.perf_counter()
+            idx.autotune(recall_target=TUNE_TARGET, k=TUNE_K)
+            if side == "card":
+                torch.cuda.synchronize()
+            tune_s = time.perf_counter() - t0
+            launches = c.read_counts()
+            tuned = idx.tuned
+            safe, tuned_s = idx.searcher(k=TUNE_K, nprobe=nlist_b), idx.searcher(k=TUNE_K)
+            safe.warmup(bq_n)
+            tuned_s.warmup(bq_n)
+            rec = {"tuned": recall_at_10(tuned_s(bq)[1], safe(bq)[1])}
+            where = Lt("attr", 1)
+            gt_f = idx.searcher(k=TUNE_K, nprobe=nlist_b, where=where)(bq)[1]
+            idx.tuned = dataclasses.replace(tuned, boost=None)
+            rec["unboosted"] = recall_at_10(idx.searcher(k=TUNE_K, where=where)(bq)[1], gt_f)
+            idx.tuned = tuned
+            rec["boosted"] = recall_at_10(idx.searcher(k=TUNE_K, where=where)(bq)[1], gt_f)
+            e = {"tuned": tuned, "tune_s": tune_s, "recall": rec, "launches": launches}
+            if side == "card":
+                for arm, fn in (("tuned", tuned_s), ("safe", safe)):
+                    lat = []
+                    for _ in range(20):
+                        t0 = time.perf_counter()
+                        fn(bq)
+                        lat.append(time.perf_counter() - t0)
+                    lat.sort()
+                    e[f"{arm}_ms"] = {"median": 1e3 * lat[10], "p90": 1e3 * lat[17]}
+            runs[side] = e
+            del idx, safe, tuned_s
+    finally:
+        rhdh.THREEFRY_PARTITIONABLE = stream
+    card, cpu = runs["card"], runs["cpu"]
+    out["launches"]["9d_sweep"] = card["launches"]
+    want = {"tuned": 0.9625, "unboosted": 0.55, "boosted": 1.0}
+    tie = 1.0 / (bq_n * TUNE_K)
+    t = card["tuned"]
+    out["bench"] = {"knobs": t.knobs, "ladder": [[r.value, r.recall] for r in t.ladder["nprobe"]],
+                    "boost": [[p.selectivity, p.mult, p.recall] for p in t.boost.points],
+                    "tune_s_card": card["tune_s"], "tune_s_cpu": cpu["tune_s"],
+                    "recall_card": card["recall"], "recall_cpu": cpu["recall"],
+                    "tuned_equal_cpu": card["tuned"] == cpu["tuned"],
+                    "tuned_ms": card["tuned_ms"], "safe_ms": card["safe_ms"], "gpu": c.smi}
+    say(f"9d autotune_bench smoke (n {n_b}, d {d_b}, nlist {nlist_b}, {bq_n} queries, legacy "
+        f"stream): tuned {t.knobs}, ladder {out['bench']['ladder']}, boost "
+        f"{out['bench']['boost']}; recall@10 card {card['recall']} CPU plain {cpu['recall']} "
+        f"(baseline {want}); TuneResult card = CPU {out['bench']['tuned_equal_cpu']}; tune "
+        f"{card['tune_s']:.3f} s card, {cpu['tune_s']:.3f} s CPU; batch of {bq_n} on "
+        f"{c.smi}: tuned median {card['tuned_ms']['median']:.4f} ms p90 "
+        f"{card['tuned_ms']['p90']:.4f}, safe (nprobe {nlist_b}) median "
+        f"{card['safe_ms']['median']:.4f} ms p90 {card['safe_ms']['p90']:.4f}; launches "
+        f"{card['launches']}")
+    expect(out["bench"]["tuned_equal_cpu"], "9d: the card's TuneResult is not the CPU's")
+    expect(all(abs(card["recall"][k] - want[k]) <= tie + 1e-12
+               and abs(cpu["recall"][k] - want[k]) <= tie + 1e-12 for k in want),
+           "9d: a recall is not the baseline's within one id in 80")
+    got = card["launches"]
+    expect(got["fwht"] > 0 and got["gather_nibble_dot"] > 0 and got["nibble_dot"] > 0,
+           f"9d: the card's sweep did not run B2, B4 and B1 ({got})")
+    say(f"phase 9d: {time.perf_counter() - t_phase:.1f} s")
+    tdir.cleanup()
+    return out
+
+
+def recall_at_10(pred_ids, gt_ids) -> float:
+    """``benchmarks/common.recall_at_10`` (that module imports JAX)."""
+    import numpy as np
+
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / gt_ids.shape[1]
+                          for a, b in zip(pred_ids.astype(np.int64), gt_ids.astype(np.int64))]))
+
+
+def hnsw_tune_phase(c, h, sub, exact, recall, run) -> dict:
+    """Phase 9c on phase 8a's index (Table 2's 8,192 rows): the ef ladder
+    against the full scan over the same rows (no boost), the ef 1024 rung's
+    beam iterations and device time, its recall@10 over the phase-4 queries
+    against exact beside the full scan's (ROADMAP C3), and level-0
+    reachability from the entry point (a host BFS over neighbors0)."""
+    torch, np, dev = c.torch, c.np, c.dev
+    from repro_torch.core import hnsw as hnsw_mod, quantize as qz
+    from repro_torch.tune import sample_queries
+
+    t_phase = time.perf_counter()
+    sweep = tune_sweep(c, h, "9c hnsw")
+    got = sweep["launches"]
+    c.expect(got["fwht"] > 0 and got["gather_nibble_dot"] > 0 and got["nibble_dot"] > 0,
+             f"9c: the sweep did not run B2, B4 and the oracle's B1 ({got})")
+    c.expect(sweep["boost"] is None and [v for v, _ in sweep["ladder"]]
+             == [10, 20, 40, 80, 160, 320, 640, 1024], "9c: not the reference's ef ladder")
+    be = h.backend
+    top = sweep["ladder"][-1][0]
+    qs = torch.from_numpy(sample_queries(h, TUNE_QUERIES, h.tuned.seed)).to(dev)
+    trace: list = []
+    hnsw_mod.search_stage(qz.encode_query(qs, be.enc), be.enc.packed, be.enc.qnorms, be.nbr0_t,
+                          be.nbr_hi_t, torch.ones(be.enc.n, dtype=torch.bool, device=dev),
+                          entry=be.entry_point, ef=top, k=TUNE_K, metric="cosine", bits=4,
+                          n4_dims=0, max_level=be.max_level, trace=trace)
+    dev_ms, blocks = staged_device_ms(torch, h, {"ef": top}, c.queries)
+    rec_top = recall(run(h, {"ef": top})[1], exact)
+    nbr0 = be.neighbors0
+    seen = np.zeros(be.enc.n, dtype=bool)
+    seen[be.entry_point] = True
+    frontier = np.array([be.entry_point])
+    while frontier.size:
+        nxt = nbr0[frontier].ravel()
+        nxt = np.unique(nxt[nxt >= 0])
+        nxt = nxt[~seen[nxt]]
+        seen[nxt] = True
+        frontier = nxt
+    n_graphs, graphs_mib = held_graph_mib(c, h)
+    out = {"sweep": sweep, "top_ef": top, "iterations": trace, "device_ms_64": dev_ms,
+           "device_blocks_64": blocks, "recall_at_10_exact": rec_top,
+           "reachable_level0": int(seen.sum()), "rows": int(be.enc.n),
+           "graphs_held": n_graphs, "graphs_mib": graphs_mib}
+    say(f"9c hnsw ef ladder recall vs the full scan over the {be.enc.n} rows "
+        f"{sweep['ladder']}, met_target {sweep['met_target']}; ef={top}: iterations per loop "
+        f"(descent levels, beam) for the {TUNE_QUERIES} sample queries {trace}; a search of 64 "
+        f"{dev_ms:.4f} ms device (blocks {blocks}); recall@10 vs exact over the 640 queries "
+        f"{rec_top:.4f}; level-0 reachability from entry {be.entry_point}: {int(seen.sum())} "
+        f"of {be.enc.n} rows; the index's {n_graphs} graphs (8e's and the sweep's) held "
+        f"{graphs_mib:.1f} MiB of reserved card memory")
+    say(f"phase 9c: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
@@ -1514,14 +1958,15 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     # The host CPU picks the kernels of the CPU plain paths compared against
-    # below (ROADMAP C item 2).
+    # below (ROADMAP C, C1).
     cpu_model = next((line.split(":", 1)[1].strip() for line in
                       Path("/proc/cpuinfo").read_text().splitlines()
                       if line.startswith("model name")), "unknown")
     say(f"host CPU {cpu_model}, torch CPU capability "
-        f"{torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads")
+        f"{torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads, "
+        f"MKL_CBWR={os.environ.get('MKL_CBWR')}")
     report: dict = {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-                    "host_cpu": cpu_model}
+                    "host_cpu": cpu_model, "mkl_cbwr": os.environ.get("MKL_CBWR")}
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2933,6 +3378,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 9. autotune -----------------------------------------------------------------
+    # 9c ran inside phase 8 on the 8a index; its report and launches join 9's.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    report["autotune"] = autotune_phase(SimpleNamespace(
+        torch=torch, np=np, dev=dev, corpus=corpus, queries=queries, expect=expect, say=say,
+        reset_counts=reset_counts, read_counts=read_counts, smi=smi))
+    report["autotune"]["hnsw"] = report["hnsw_hybrid"].pop("tune")
+    report["autotune"]["launches"]["9c_sweep"] = report["autotune"]["hnsw"]["sweep"]["launches"]
+    torch.cuda.empty_cache()
+    say(f"phase 9 (a, b, d): {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/nibble_dot.cu",
@@ -2973,6 +3431,11 @@ def main() -> int:
     for entry in kernels:
         entry["launches_phase8"] = {path: counts[entry["name"]] for path, counts in
                                     report["hnsw_hybrid"]["launches"].items()}
+    # Phase 9's paths: each autotune sweep (9a IVF, 9b sign cascade, 9c HNSW,
+    # 9d the benchmark shape) and the boosted where= searches of 9a and 9b.
+    for entry in kernels:
+        entry["launches_phase9"] = {path: counts[entry["name"]] for path, counts in
+                                    sorted(report["autotune"]["launches"].items())}
     report["kernels"] = kernels
     report["precision_launches"] = precision_launches
     report["failures"] = FAILURES

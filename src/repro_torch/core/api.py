@@ -26,6 +26,8 @@
     search = idx.searcher(k=10).warmup(64)               # bound handle
     scores, ids = search(queries)
 
+    idx.autotune(recall_target=0.95, k=10)   # idx.tuned: knob defaults, saved as v11
+
 A mixed index with a variance permutation is built from a
 ``quantize.encode_mixed(..., perm=quantize.variance_permutation(sample))``
 encoding as ``MonaVec(BruteForceIndex(enc=enc, ids=ids))``.
@@ -36,10 +38,10 @@ IVF build clusters there and an HNSW build rotates there, its graph being
 built on the host); ids, tombstones, metadata values and results are numpy
 arrays on the host.  Every search runs through the engine
 (``repro_torch.engine``): on the card the captured CUDA graphs of its plan,
-replayed.  ``save`` writes v10 with coarse codes, v9 with metadata columns,
-v8 once the index is mutated, v7 with a permutation and v6 otherwise; an IVF
-index carries its centroids and lists in INDEX_DATA, an HNSW index its
-graph.  Autotuning and sharding are ROADMAP A11 and A12.
+replayed.  ``save`` writes v11 with an autotune result, v10 with coarse
+codes, v9 with metadata columns, v8 once the index is mutated, v7 with a
+permutation and v6 otherwise; an IVF index carries its centroids and lists
+in INDEX_DATA, an HNSW index its graph.  Sharding is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tune.result import TuneResult
 from . import binary
 from . import mvec_format as fmt
 from . import segments as seg
@@ -78,6 +81,7 @@ class MonaVec:
     backend: Backend
     mut: Optional[seg.SegmentedState] = None
     meta: Optional[MetaStore] = None     # per-row metadata columns (v9)
+    tuned: Optional[TuneResult] = None   # the autotune result (v11): knob defaults
 
     def __post_init__(self):
         if self.mut is None:
@@ -108,7 +112,7 @@ class MonaVec:
         ids: Optional[np.ndarray] = None,
         meta: Optional[dict] = None,
         coarse: Optional[str] = None,
-        autotune=None,
+        autotune: Union[bool, float, dict, None] = None,
         device: torch.device | str = "cuda",
         **kwargs,
     ) -> "MonaVec":
@@ -118,7 +122,9 @@ class MonaVec:
         reference's defaults 64 and 25); ``index="hnsw"`` builds the graph
         (``m``, default ``recommended_m(n)``, and ``ef_construction``,
         default 100); ``meta`` names per-row columns (int, float or str
-        arrays of len(vectors))."""
+        arrays of len(vectors)).  ``autotune=True`` tunes the index with the
+        defaults, a float is the recall target, a dict ``autotune``'s
+        keywords."""
         if coarse is not None and index != "bruteforce":
             raise ValueError("coarse= (the binarized cascade) requires the bruteforce "
                              f"index, got index={index!r}")
@@ -129,8 +135,6 @@ class MonaVec:
             raise TypeError(f"unexpected build kwargs for index={index!r}: {unknown}")
         if index != "bruteforce" and avg_bits is not None and avg_bits != 4:
             raise ValueError("avg_bits (mixed precision) requires the bruteforce index")
-        if autotune is not None and autotune is not False:
-            raise _unported("autotune=", "A11")
         dev = resolve_device(device)
         x = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
         store = MetaStore.build(meta, int(x.shape[0])) if meta else None
@@ -146,6 +150,12 @@ class MonaVec:
         idx = MonaVec(be, meta=store)
         if coarse is not None:
             idx.enable_coarse(coarse)
+        if autotune is True:
+            idx.autotune()
+        elif isinstance(autotune, dict):
+            idx.autotune(**autotune)
+        elif autotune is not None and autotune is not False:
+            idx.autotune(recall_target=float(autotune))
         return idx
 
     @staticmethod
@@ -268,8 +278,8 @@ class MonaVec:
         sequences compact to byte-identical indexes.  An IVF index is
         clustered again over the live rows (``nlist = min(nlist, n_live)``),
         an HNSW graph built again with the same ``m`` and ``ef_construction``
-        (100 when unknown), and metadata columns keep the live rows.  Returns the number of dead
-        rows reclaimed."""
+        (100 when unknown), metadata columns keep the live rows and ``tuned``
+        stays.  Returns the number of dead rows reclaimed."""
         reclaimed = self.n_total - self.n_live
         if not self.mut.extras and reclaimed == 0:
             return 0
@@ -318,16 +328,30 @@ class MonaVec:
             s.enc = binary.attach_coarse(s.enc, kind)
         return self
 
+    # -- autotuning (DESIGN.md §12) -----------------------------------------
+
+    def autotune(self, recall_target: float = 0.95, k: int = 10, *, n_queries: int = 32,
+                 seed: int = 0xA07001, boost: bool = True) -> "MonaVec":
+        """Pick the cheapest knobs meeting ``recall@k >= recall_target``:
+        seeded sample queries drawn from the corpus, recall against an exact
+        full scan over the same codes, the smallest ladder rung meeting the
+        target (``tune.autotune``).  The result rides on ``self.tuned`` as
+        every later search's knob defaults and is saved as the v11 TUNE
+        block; ``boost=True`` also tunes the selectivity boost curve of
+        filtered IVF and cascade searches.  Returns ``self``."""
+        from ..tune.autotune import autotune
+        self.tuned = autotune(self, recall_target=recall_target, k=k, n_queries=n_queries,
+                              seed=seed, boost=boost)
+        return self
+
     def resolved_knobs(self, k: int = 10, **kwargs) -> dict:
-        """The knobs ``search(queries, k, **kwargs)`` runs with, after the
-        ``nprobe <= nlist`` clamp and the ``rescore_mult`` rules; an empty
-        dict means the full scan."""
+        """The knobs ``search(queries, k, **kwargs)`` runs with: a keyword,
+        else the tuned knob, else the default, after the ``nprobe <= nlist``
+        clamp and the ``ef`` and ``rescore_mult`` rules; an empty dict means
+        the full scan."""
         from ..engine.plan import resolve_knobs
         return resolve_knobs(self.backend, None if self.mut.is_static else self.mut, k,
-                             **kwargs)
-
-    def autotune(self, *args, **kwargs):
-        raise _unported("autotune", "A11")
+                             tuned=self.tuned, **kwargs)
 
     def shard(self, mesh=None):
         raise _unported("shard", "A12")
@@ -344,19 +368,22 @@ class MonaVec:
         gathered scan and the extra segments' full scans, merged; on an HNSW
         index the beam of width ``ef`` (default 64, widened to k) over the
         graph, merged the same way.  ``where``
-        is a ``predicate.Predicate`` over the metadata columns.  Always
+        is a ``predicate.Predicate`` over the metadata columns.  Knobs not
+        given come from ``self.tuned`` (with its boost curve) when the index
+        is tuned.  Always
         exactly ``k`` columns; inadmissible slots carry SENTINEL_ID/NEG.
         Allowlists are built from ``MonaVec.ids``."""
         from ..engine.plan import search_backend
         return search_backend(self.backend, None if self.mut.is_static else self.mut,
-                              queries, k, allow=allow, where=where, meta=self.meta, **kwargs)
+                              queries, k, allow=allow, where=where, meta=self.meta,
+                              tuned=self.tuned, **kwargs)
 
     def searcher(self, k: int = 10, *, where=None, **kwargs):
         """Bound search handle: ``s = idx.searcher(k=10, where=p, nprobe=16);
         s(queries)``.  It resolves its plan through the shared cache on every
         call, so it tracks add/delete/compact, and ``s.warmup(batch_size)``
         builds (on the card: captures) the plan of that batch's bucket ahead
-        of the traffic."""
+        of the traffic.  It reads ``self.tuned`` on every call."""
         from ..engine.plan import Searcher
         return Searcher(self, k=k, where=where, knobs=kwargs)
 
@@ -376,7 +403,7 @@ class MonaVec:
             index_data=blob, index_param2=param2,
             extras=[fmt.ExtraSegment(enc=s.enc, ids=s.ids) for s in self.mut.extras],
             tombs=[self.mut.base_tombs] + [s.tombs for s in self.mut.extras],
-            meta=self.meta))
+            meta=self.meta, tune=self.tuned))
 
     @staticmethod
     def load(path: str, device: torch.device | str = "cuda") -> "MonaVec":
@@ -402,4 +429,4 @@ class MonaVec:
             extras=[seg.Segment(enc=e.enc, ids=e.ids, tombs=f.tombs[i + 1])
                     for i, e in enumerate(f.extras)],
             next_ordinal=len(f.extras) + 1)
-        return MonaVec(be, mut=mut, meta=f.meta)
+        return MonaVec(be, mut=mut, meta=f.meta, tuned=f.tune)

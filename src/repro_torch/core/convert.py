@@ -5,8 +5,8 @@ The fields of an encoded corpus (packed codes, norms, seed, shape
 metadata and, for a mixed corpus, its 4/2 split and permutation) are the
 "weights" of this system; a mutated index adds per-segment ids, tombstones
 and the next segment ordinal, an IVF index its centroids and CSR lists, an
-HNSW index its graph, and an index with metadata its columns and
-vocabularies.  Taking them as numpy
+HNSW index its graph, an index with metadata its columns and
+vocabularies, and a tuned index its autotune result.  Taking them as numpy
 arrays lets one index, for example the reference's mutated ``MonaVec``,
 feed both packages with the same bytes without going through a file.
 """
@@ -103,6 +103,29 @@ def meta_from_arrays(columns: Mapping[str, Tuple[str, np.ndarray, Optional[Seque
     if len({c.n for c in cols.values()}) > 1:
         raise ValueError("metadata columns differ in length")
     return md.MetaStore(columns=cols)
+
+
+def tune_from_fields(tune):
+    """The port's ``TuneResult`` with the fields of ``tune``, any object with
+    a TuneResult's attribute names (the reference's, for one), or None:
+    ``recall_target``, ``k``, ``n_queries``, ``seed``, ``met_target``,
+    ``knobs``, ``ladder`` (name -> rungs with ``value`` and ``recall``) and
+    ``boost`` (None, or ``points`` with ``selectivity``, ``mult`` and
+    ``recall``)."""
+    from ..tune.result import BoostCurve, BoostPoint, KnobRung, TuneResult
+
+    if tune is None:
+        return None
+    boost = None if tune.boost is None else BoostCurve(points=tuple(
+        BoostPoint(selectivity=float(p.selectivity), mult=int(p.mult), recall=float(p.recall))
+        for p in tune.boost.points))
+    return TuneResult(
+        recall_target=float(tune.recall_target), k=int(tune.k), n_queries=int(tune.n_queries),
+        seed=int(tune.seed), met_target=bool(tune.met_target),
+        knobs={str(name): int(v) for name, v in dict(tune.knobs).items()},
+        ladder={str(name): tuple(KnobRung(value=int(r.value), recall=float(r.recall))
+                                 for r in rungs) for name, rungs in dict(tune.ladder).items()},
+        boost=boost)
 
 
 def segmented_from_arrays(

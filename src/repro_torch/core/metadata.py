@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -123,6 +124,14 @@ def split_key(keys) -> Tuple[np.ndarray, np.ndarray]:
 # Columns and the store.
 # ---------------------------------------------------------------------------
 
+#: Monotone token minted per Column construction.  Every mutation path
+#: (append / gather / load) builds NEW Column objects, so a column's
+#: ``version`` changing is a sound proxy for "its values may have changed":
+#: the selectivity counts (``tune.selectivity``) key their cache on these
+#: tokens instead of hashing the values.
+_COLUMN_VERSIONS = itertools.count(1)
+
+
 @dataclasses.dataclass
 class Column:
     """One typed column: exact host values and the int64 key plane."""
@@ -131,10 +140,12 @@ class Column:
     values: np.ndarray                    # i64 / f64, or int32 codes for str
     vocab: Optional[List[str]] = None     # str columns: code -> string
     skey: np.ndarray = dataclasses.field(init=False)
+    version: int = dataclasses.field(init=False, compare=False, repr=False)
     _on_device: dict = dataclasses.field(init=False, default_factory=dict, repr=False,
                                          compare=False)
 
     def __post_init__(self) -> None:
+        self.version = next(_COLUMN_VERSIONS)
         if self.kind == KIND_I64:
             keys = _i64_keys(self.values)
         elif self.kind == KIND_F64:

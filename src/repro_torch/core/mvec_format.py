@@ -1,12 +1,12 @@
-"""`.mvec` single-file index format, versions 6 to 10 (subset of
-``repro/core/mvec_format.py``; paper §3.8, DESIGN.md §2, §6 and §11).
+"""`.mvec` single-file index format, versions 6 to 11 (counterpart of
+``repro/core/mvec_format.py``; paper §3.8, DESIGN.md §2, §6, §11 and §12).
 
 A fixed 56-byte little-endian header, then length-prefixed blocks:
 
     0   MAGIC       4s   b"MVEC"
     4   VERSION     u32  6, 7 (a permutation block), 8 (segments and
-                         tombstones), 9 (metadata columns) or 10 (coarse
-                         codes)
+                         tombstones), 9 (metadata columns), 10 (coarse
+                         codes) or 11 (an autotune result)
     8   DIM         u32  input dimension d
     12  METRIC      u8   0=Cosine 1=Dot 2=L2
     13  BIT_WIDTH   u8   2, 3 (mixed 4/2) or 4
@@ -19,13 +19,14 @@ A fixed 56-byte little-endian header, then length-prefixed blocks:
     44  HAS_STD     u8   1 if the global standardization block follows
     45  HAS_PERM    u8   v8 and later: 1 if the PERM block follows (v7 says
                          so through VERSION; always 0 in v6 and v7)
-    46  COARSE_KIND u8   v10: 1=sign 2=crumb (0 before version 10)
-    47  HAS_META    u8   v10: 1 if the metadata column table follows (v9
-                         says so through VERSION)
+    46  COARSE_KIND u8   v10: 1=sign 2=crumb; v11: 0 (no CODE blocks), 1 or 2
+                         (0 before version 10)
+    47  HAS_META    u8   v10, v11: 1 if the metadata column table follows
+                         (v9 says so through VERSION)
     48  (8 bytes)        zero
 
 Blocks: STD_MEAN [f32 x dim] and STD_INV_STD [f32 x dim] (if HAS_STD), PERM
-[i32 x d'] (v7, or v8-v10 with HAS_PERM), then VECTORS [u8], IDS [u64], NORMS
+[i32 x d'] (v7, or v8-v11 with HAS_PERM), then VECTORS [u8], IDS [u64], NORMS
 [f32] (each with a u64 byte length), then INDEX_DATA (u64 length + bytes).
 A row of VECTORS is d'/2 bytes (4-bit), d'/4 (2-bit), or N4_DIMS/2 +
 (d'-N4_DIMS)/4 (mixed).  Version 8 appends the segment table:
@@ -49,16 +50,29 @@ column table:
             VALUES [i64|f64|i32] the segment's rows (i32 = vocab codes)
 
 Version 10 writes the v8 body, the metadata column table if HAS_META, then
-one CODE block [u8, n x code_bytes] per segment, base first.  ``save``
-picks the version as the reference does: 10 with coarse codes, else 9 with
-metadata columns, else 8 when the index has extra segments or a tombstone,
-else 7 with a permutation, else 6; so a static or compacted index still
-writes v6/v7.  Every read is checked against the bytes present, so a
-truncated or garbage-tailed file raises ValueError naming the block.
-Version 11 (autotune results) raises NotImplementedError naming ROADMAP
-A11.  An IVF index's centroids and lists are its INDEX_DATA
-(``pack_ivf_blob``), an HNSW index's graph too (``pack_hnsw_blob``), with
-M in INDEX_PARAMS and ef_construction in its param2 (0 = unknown).
+one CODE block [u8, n x code_bytes] per segment, base first.  Version 11
+writes the v8 body, the metadata table if HAS_META, the CODE blocks if
+COARSE_KIND != 0, then one length-prefixed TUNE envelope:
+
+    TUNE_LEN   u64               payload byte length
+    payload:
+        FORMAT u32 (1), RECALL_TARGET f64, K u32, N_QUERIES u32, SEED u64,
+        MET_TARGET u8
+        KNOBS      u32 count, per knob (sorted by name): NAME str, CHOSEN i64
+        LADDERS    u32 count, per ladder (sorted by name): NAME str,
+                   u32 n_rungs, per rung: VALUE i64, RECALL f64
+        HAS_BOOST  u8; if 1: u32 n_points, per point: SELECTIVITY f64,
+                   MULT i64, RECALL f64
+
+``save`` picks the version as the reference does: 11 with an autotune
+result, else 10 with coarse codes, else 9 with metadata columns, else 8 when
+the index has extra segments or a tombstone, else 7 with a permutation,
+else 6; so a static or compacted index still writes v6/v7.  Every read is
+checked against the bytes present, so a truncated or garbage-tailed file
+raises ValueError naming the block.  An IVF index's centroids and lists
+are its INDEX_DATA (``pack_ivf_blob``), an HNSW index's graph too
+(``pack_hnsw_blob``), with M in INDEX_PARAMS and ef_construction in its
+param2 (0 = unknown).
 """
 
 from __future__ import annotations
@@ -77,6 +91,7 @@ from . import quantize as qz
 from .binary import code_bytes
 from .rhdh import next_pow2
 from .standardize import COSINE, DOT, L2, GlobalStd
+from ..tune.result import BoostCurve, BoostPoint, KnobRung, TuneResult
 
 MAGIC = b"MVEC"
 HEADER_LEN = 56
@@ -86,10 +101,11 @@ VERSION_PERM = 7
 VERSION_SEGMENTS = 8
 VERSION_META = 9
 VERSION_COARSE = 10
-_READS = (VERSION, VERSION_PERM, VERSION_SEGMENTS, VERSION_META, VERSION_COARSE)
+VERSION_TUNE = 11
+_READS = (VERSION, VERSION_PERM, VERSION_SEGMENTS, VERSION_META, VERSION_COARSE,
+          VERSION_TUNE)
 _COARSE_CODE = {"sign": 1, "crumb": 2}
 _COARSE_NAME = {v: k for k, v in _COARSE_CODE.items()}
-_UNPORTED_VERSION = {11: "A11: autotune results"}
 _META_DTYPE = {md.KIND_I64: np.int64, md.KIND_F64: np.float64, md.KIND_STR: np.int32}
 _METRIC_CODE = {COSINE: 0, DOT: 1, L2: 2}
 _METRIC_NAME = {v: k for k, v in _METRIC_CODE.items()}
@@ -135,6 +151,12 @@ class _Reader:
     def u8(self, name: str) -> int:
         return self.take(1, name)[0]
 
+    def i64(self, name: str) -> int:
+        return struct.unpack("<q", self.take(8, name))[0]
+
+    def f64(self, name: str) -> float:
+        return struct.unpack("<d", self.take(8, name))[0]
+
     def str_(self, name: str) -> str:
         nbytes = self.u32(f"{name} length")
         try:
@@ -179,17 +201,90 @@ class MvecFile:
     index_param2: int = 0
     extras: List[ExtraSegment] = dataclasses.field(default_factory=list)
     tombs: Optional[List[np.ndarray]] = None   # [1 + len(extras)] bool bitmaps
-    meta: Optional[md.MetaStore] = None        # per-row metadata columns (v9, v10)
+    meta: Optional[md.MetaStore] = None        # per-row metadata columns (v9-v11)
+    tune: Optional[TuneResult] = None          # the autotune result (v11)
 
 
 def _host(t: torch.Tensor, dtype) -> np.ndarray:
     return t.cpu().numpy().astype(dtype)
 
 
+def _write_tune(buf: io.BytesIO, tune: TuneResult) -> None:
+    """One TuneResult as the v11 TUNE envelope, knobs and ladders in sorted
+    name order, so the bytes do not hang on dict order."""
+    body = io.BytesIO()
+    body.write(struct.pack("<IdIIQB", 1, float(tune.recall_target), int(tune.k),
+                           int(tune.n_queries), int(tune.seed) & 0xFFFFFFFFFFFFFFFF,
+                           1 if tune.met_target else 0))
+    knobs = dict(tune.knobs)
+    body.write(struct.pack("<I", len(knobs)))
+    for name in sorted(knobs):
+        _write_str(body, name)
+        body.write(struct.pack("<q", int(knobs[name])))
+    ladder = dict(tune.ladder)
+    body.write(struct.pack("<I", len(ladder)))
+    for name in sorted(ladder):
+        _write_str(body, name)
+        rungs = tuple(ladder[name])
+        body.write(struct.pack("<I", len(rungs)))
+        for r in rungs:
+            body.write(struct.pack("<qd", int(r.value), float(r.recall)))
+    if tune.boost is None:
+        body.write(struct.pack("<B", 0))
+    else:
+        points = tuple(tune.boost.points)
+        body.write(struct.pack("<BI", 1, len(points)))
+        for p in points:
+            body.write(struct.pack("<dqd", float(p.selectivity), int(p.mult), float(p.recall)))
+    payload = body.getvalue()
+    buf.write(struct.pack("<Q", len(payload)))
+    buf.write(payload)
+
+
+def _read_tune(rd: _Reader) -> TuneResult:
+    """The TUNE envelope as a TuneResult."""
+    sub = _Reader(rd.take(rd.u64("tune length"), "tune"))
+    fmt_code = sub.u32("tune format")
+    if fmt_code != 1:
+        raise ValueError(f".mvec corrupt block 'tune': unknown tune format {fmt_code}")
+    recall_target = sub.f64("tune recall_target")
+    k = sub.u32("tune k")
+    n_queries = sub.u32("tune n_queries")
+    seed = sub.u64("tune seed")
+    met = sub.u8("tune met_target")
+    if met not in (0, 1):
+        raise ValueError(f".mvec corrupt block 'tune': met_target must be 0 or 1, got {met}")
+    knobs = {}
+    for i in range(sub.u32("tune knob count")):
+        name = sub.str_(f"tune knob[{i}] name")
+        knobs[name] = sub.i64(f"tune knob[{i}] value")
+    ladder = {}
+    for i in range(sub.u32("tune ladder count")):
+        name = sub.str_(f"tune ladder[{i}] name")
+        ladder[name] = tuple(
+            KnobRung(value=sub.i64(f"tune ladder[{i}] rung[{ri}] value"),
+                     recall=sub.f64(f"tune ladder[{i}] rung[{ri}] recall"))
+            for ri in range(sub.u32(f"tune ladder[{i}] rung count")))
+    boost = None
+    if sub.u8("tune has_boost"):
+        points = tuple(
+            BoostPoint(selectivity=sub.f64(f"tune boost[{pi}] selectivity"),
+                       mult=sub.i64(f"tune boost[{pi}] mult"),
+                       recall=sub.f64(f"tune boost[{pi}] recall"))
+            for pi in range(sub.u32("tune boost point count")))
+        try:
+            boost = BoostCurve(points=points)
+        except ValueError as e:
+            raise ValueError(f".mvec corrupt block 'tune': {e}") from None
+    sub.expect_eof()
+    return TuneResult(recall_target=recall_target, k=k, n_queries=n_queries, seed=seed,
+                      met_target=bool(met), knobs=knobs, ladder=ladder, boost=boost)
+
+
 def save(path: str, f: MvecFile) -> None:
-    """Write version 10 when the segments carry coarse codes, else 9 with
-    metadata columns, else 8 when there is an extra segment or a tombstone,
-    else 7 with a permutation, else 6."""
+    """Write version 11 with an autotune result, else 10 when the segments
+    carry coarse codes, else 9 with metadata columns, else 8 when there is
+    an extra segment or a tombstone, else 7 with a permutation, else 6."""
     enc = f.enc
     seg_encs = [enc] + [e.enc for e in f.extras]
     with_codes = [e.ccodes is not None for e in seg_encs]
@@ -205,7 +300,9 @@ def save(path: str, f: MvecFile) -> None:
     if has_meta and f.meta.n_rows != sum(seg_rows):
         raise ValueError(f"metadata has {f.meta.n_rows} rows but the index has "
                          f"{sum(seg_rows)}")
-    if has_codes:
+    if f.tune is not None:
+        version = VERSION_TUNE
+    elif has_codes:
         version = VERSION_COARSE
     elif has_meta:
         version = VERSION_META
@@ -222,7 +319,7 @@ def save(path: str, f: MvecFile) -> None:
         enc.n4_dims, f.index_param, f.index_param2,
         1 if has_std else 0, 1 if (has_perm and version >= 8) else 0,
         bytes([_COARSE_CODE[enc.coarse] if has_codes else 0,
-               1 if (version == VERSION_COARSE and has_meta) else 0]) + b"\x00" * 8,
+               1 if (version >= VERSION_COARSE and has_meta) else 0]) + b"\x00" * 8,
     )
     buf = io.BytesIO()
     buf.write(header)
@@ -263,14 +360,16 @@ def save(path: str, f: MvecFile) -> None:
     if has_codes:
         for e in seg_encs:
             _write_array(buf, _host(e.ccodes, np.uint8))
+    if f.tune is not None:
+        _write_tune(buf, f.tune)
     with open(path, "wb") as fh:
         fh.write(buf.getvalue())
 
 
 def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
-    """Parse a version 6 to 10 file; codes, norms and coarse codes of every
-    segment land on ``device``, ids, tombstones and metadata stay on the
-    host."""
+    """Parse a version 6 to 11 file; codes, norms and coarse codes of every
+    segment land on ``device``, ids, tombstones, metadata and the autotune
+    result stay on the host."""
     with open(path, "rb") as fh:
         data = fh.read()
     if len(data) < HEADER_LEN:
@@ -281,13 +380,9 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
         HEADER_FMT, data[:HEADER_LEN])
     if magic != MAGIC:
         raise ValueError(f"not a .mvec file (magic={magic!r})")
-    if version in _UNPORTED_VERSION:
-        raise NotImplementedError(
-            f".mvec version {version} is not ported yet (ROADMAP {_UNPORTED_VERSION[version]})"
-            f"; the port reads versions 6 to 10")
     if version not in _READS:
         raise ValueError(
-            f"unsupported .mvec version {version}: the port reads versions 6 to 10")
+            f"unsupported .mvec version {version}: the port reads versions 6 to 11")
     if metric_c not in _METRIC_NAME:
         raise ValueError(f".mvec corrupt header: unknown metric code {metric_c}")
     if bits not in qz.BIT_WIDTHS:
@@ -297,11 +392,13 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
         raise ValueError(f".mvec corrupt header: N4_DIMS {n4_dims} is not a multiple of 4 "
                          f"in [0, {next_pow2(dim)}]")
     coarse = None
-    if version == VERSION_COARSE:
-        if tail[0] not in _COARSE_NAME:
-            raise ValueError(f".mvec corrupt header: version 10 requires COARSE_KIND 1 "
-                             f"(sign) or 2 (crumb), got {tail[0]}")
-        coarse = _COARSE_NAME[tail[0]]
+    if version >= VERSION_COARSE:
+        # v10 is defined by its coarse codes; v11 may carry them or not.
+        if tail[0] not in _COARSE_NAME and not (version == VERSION_TUNE and tail[0] == 0):
+            raise ValueError(f".mvec corrupt header: version {version} requires COARSE_KIND "
+                             f"1 (sign) or 2 (crumb){' or 0' if version == VERSION_TUNE else ''}"
+                             f", got {tail[0]}")
+        coarse = _COARSE_NAME.get(tail[0])
     rd = _Reader(data, HEADER_LEN)
     std = None
     if has_std:
@@ -351,7 +448,7 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
             packed_bits = rd.array(np.uint8, f"tombstones[{i}]", count=(n_rows + 7) // 8)
             tombs.append(np.unpackbits(packed_bits)[:n_rows].astype(bool))
     meta = None
-    if version == VERSION_META or (version == VERSION_COARSE and tail[1]):
+    if version == VERSION_META or (version >= VERSION_COARSE and tail[1]):
         meta = _read_meta(rd, [int(count)] + [e.ids.shape[0] for e in extras])
     if coarse is not None:
         cb = code_bytes(dim_pad, coarse)
@@ -362,10 +459,12 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
         enc = dataclasses.replace(enc, coarse=coarse, ccodes=seg_codes[0])
         for x, cc in zip(extras, seg_codes[1:]):
             x.enc = dataclasses.replace(x.enc, coarse=coarse, ccodes=cc)
+    tune = _read_tune(rd) if version == VERSION_TUNE else None
     rd.expect_eof()
     return MvecFile(enc=enc, ids=ids, index_type=int(index_type),
                     index_param=int(index_param), index_data=blob,
-                    index_param2=int(param2), extras=extras, tombs=tombs, meta=meta)
+                    index_param2=int(param2), extras=extras, tombs=tombs, meta=meta,
+                    tune=tune)
 
 
 def _read_meta(rd: _Reader, seg_rows: List[int]) -> md.MetaStore:

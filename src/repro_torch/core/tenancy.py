@@ -124,4 +124,6 @@ class TenantRegistry:
 
     def autotune(self, token: Optional[str], name: str,
                  recall_target: float = 0.95, **kwargs):
-        raise NotImplementedError("autotune is not ported yet (ROADMAP A11)")
+        """Autotune a tenant's collection (DESIGN.md §12); returns the
+        TuneResult now riding on the collection (and saved by ``save``)."""
+        return self.get(token, name).autotune(recall_target=recall_target, **kwargs).tuned

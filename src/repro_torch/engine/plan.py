@@ -58,7 +58,14 @@ replay, like the queries), so two predicates of one structure share one plan
 and one graph.  An IVF plan rotates, probes and scans the base segment
 (``ivf.search_stage``), scans each extra segment in full and merges
 (``segments.merge_stage``), and an HNSW plan does the same after its beam.
-Tuned knobs are ROADMAP A11, sharded search A12 and the stage observer A15.
+
+Knobs resolve as an explicit keyword first, then an autotune result's
+(``tuned=``, ``tune.TuneResult``), then the engine's default.  A tuned boost
+curve widens ``nprobe`` / ``rescore_mult`` on a selective filtered search:
+the filter's exact count (``tune.selectivity``, a host sync taken here while
+the search resolves, never inside a capture) picks the multiplier before the
+plan is keyed, so a boosted budget is an ordinary plan key with its own
+graph.  Sharded search is ROADMAP A12 and the stage observer A15.
 """
 
 from __future__ import annotations
@@ -510,25 +517,30 @@ def _validate_knobs(backend: Any, kwargs: dict) -> None:
                         f"backend: {unknown}")
 
 
-def _normalize_knobs(backend: Any, extras: Sequence[Any], kwargs: dict, k: int) -> dict:
-    """IVF: ``nprobe`` (default 8) clamped to ``nlist``.  HNSW: ``ef``
-    (default 64) widened to ``max(ef, k)``, since only beam members can
-    enter the result set.  BruteForce:
-    ``rescore_mult=r > 0`` selects the binarized cascade with m = r*k
-    survivors per segment; None or 0 is the full scan, a negative one or an
-    index without coarse codes raises, and when every segment would rescore
-    all of its rows (r*k >= the largest segment) the knob normalizes away and
-    the plan is the full scan's."""
+def _normalize_knobs(backend: Any, extras: Sequence[Any], kwargs: dict, k: int,
+                     tuned: Any = None) -> dict:
+    """An explicit keyword wins; a knob given as None, or not given, takes
+    ``tuned.knobs``'s value, else the engine default.  IVF: ``nprobe``
+    (default 8) clamped to ``nlist``.  HNSW: ``ef`` (default 64) widened to
+    ``max(ef, k)``, since only beam members can enter the result set.
+    BruteForce: ``rescore_mult=r > 0`` selects the binarized cascade with m
+    = r*k survivors per segment; None or 0 is the full scan, a negative one
+    or an index without coarse codes raises, and when every segment would
+    rescore all of its rows (r*k >= the largest segment) the knob normalizes
+    away and the plan is the full scan's."""
+    tuned_knobs = {} if tuned is None else dict(getattr(tuned, "knobs", {}))
     if isinstance(backend, ivf_mod.IvfFlatIndex):
         nprobe = kwargs.get("nprobe")
-        nprobe = _IVF_NPROBE if nprobe is None else int(nprobe)
+        nprobe = int(tuned_knobs.get("nprobe", _IVF_NPROBE) if nprobe is None else nprobe)
         if nprobe < 1:
             raise ValueError(f"nprobe must be >= 1, got {nprobe}")
         return {"nprobe": min(nprobe, backend.nlist)}
     if isinstance(backend, hnsw_mod.HnswIndex):
         ef = kwargs.get("ef")
-        return {"ef": max(_HNSW_EF if ef is None else int(ef), k)}
+        return {"ef": max(int(tuned_knobs.get("ef", _HNSW_EF) if ef is None else ef), k)}
     rm = kwargs.get("rescore_mult")
+    if rm is None:
+        rm = tuned_knobs.get("rescore_mult")
     rm = 0 if rm is None else int(rm)
     if rm < 0:
         raise ValueError(f"rescore_mult must be >= 0, got {rm}")
@@ -544,15 +556,32 @@ def _normalize_knobs(backend: Any, extras: Sequence[Any], kwargs: dict, k: int) 
     return {"rescore_mult": rm}
 
 
+def _boost_knobs(backend: Any, extras: Sequence[Any], knobs: dict, k: int,
+                 mult: int) -> dict:
+    """The candidate budget scaled by a boost-curve multiplier, after
+    normalization and before plan keying: IVF probes more lists (clamped to
+    ``nlist``), the cascade widens its survivor budget (collapsing to the
+    full scan when it covers every segment).  The HNSW beam is not boosted:
+    ``ef`` gates the traversal before the live mask is known."""
+    if isinstance(backend, ivf_mod.IvfFlatIndex):
+        return {"nprobe": min(knobs["nprobe"] * int(mult), backend.nlist)}
+    if isinstance(backend, bf_mod.BruteForceIndex) and "rescore_mult" in knobs:
+        rm = knobs["rescore_mult"] * int(mult)
+        if rm * k >= max(e.n for e in [backend.enc] + [s.enc for s in extras]):
+            return {}   # boosted into a rescore of every row: the full scan
+        return {"rescore_mult": rm}
+    return knobs
+
+
 def resolve_knobs(backend: Any, state: Any, k: int, *, tuned: Any = None,
                   **kwargs: Any) -> dict:
-    """The knobs a search with these arguments runs with (nprobe clamped to
-    nlist, rescore_mult collapsed to the full scan); {} is the full scan."""
-    if tuned is not None:
-        raise _unported("tuned knobs", "A11")
+    """The knobs a search with these arguments runs with (explicit keyword,
+    then ``tuned.knobs``, then the default; nprobe clamped to nlist, ef
+    widened to k, rescore_mult collapsed to the full scan); {} is the full
+    scan.  The per-search selectivity boost is not included."""
     _validate_knobs(backend, kwargs)
     extras = state.extras if state is not None else []
-    return dict(_normalize_knobs(backend, extras, kwargs, k))
+    return dict(_normalize_knobs(backend, extras, kwargs, k, tuned))
 
 
 def _fingerprint(backend: Any, extras: Sequence[Any], knobs: dict) -> tuple:
@@ -748,13 +777,11 @@ class _Call:
 
 def _resolve(backend: Any, state: Any, queries, k: int, allow: Optional[Allowlist],
              where, where_mask, meta, tuned, kwargs: dict) -> _Call:
-    if tuned is not None:
-        raise _unported("tuned knobs", "A11")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     _validate_knobs(backend, kwargs)
     extras = state.extras if state is not None else []
-    knobs = _normalize_knobs(backend, extras, kwargs, k)
+    knobs = _normalize_knobs(backend, extras, kwargs, k, tuned)
     kind = type(backend).__name__
     enc = backend.enc
     q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32))
@@ -775,13 +802,19 @@ def _resolve(backend: Any, state: Any, queries, k: int, allow: Optional[Allowlis
         if live.shape[0] != base_n:
             raise ValueError(f"allowlist mask covers {live.shape[0]} rows but the index "
                              f"has {base_n}; build it from the index ids")
+    boost = None if tuned is None else getattr(tuned, "boost", None)
+    boosted = boost is not None and (where is not None or where_mask is not None) and bool(knobs)
+    # The selectivity's denominator: the live and allowed rows before the
+    # caller's filter ("1%" is 1% of what an unfiltered search would rank).
+    pre_filter_n = 0
+    if boosted:
+        pre_filter_n = n_total if live is None else int(np.count_nonzero(live))
     if where_mask is not None:
         wm = np.asarray(where_mask, dtype=bool)
         if wm.shape != (n_total,):
             raise ValueError(f"where_mask covers {wm.shape} rows but the index has {n_total}")
         live = wm.copy() if live is None else live & wm
 
-    fingerprint = _fingerprint(backend, extras, knobs)
     consts: tuple = ()
     where_cols: tuple = ()
     if where is not None:
@@ -790,9 +823,24 @@ def _resolve(backend: Any, state: Any, queries, k: int, allow: Optional[Allowlis
         if meta.n_rows != n_total:
             raise ValueError(f"metadata has {meta.n_rows} rows but the index has {n_total}")
         pred.validate(where, meta)
-        fingerprint += (("where", pred.structure(where, meta)),)
         consts = pred.constant_keys(where, meta)
         where_cols = tuple(meta[c].on(enc.device) for c in pred.leaf_columns(where))
+    if boosted and pre_filter_n > 0:
+        # The filter's exact count, then the curve's multiplier, before the
+        # plan key is formed (a host sync, outside any capture).
+        if where is not None:
+            from ..tune.selectivity import estimate_matches
+            matched = estimate_matches(where, meta, live, device=enc.device)
+        else:
+            matched = int(np.count_nonzero(live))
+        mult = boost.multiplier(matched / pre_filter_n)
+        if mult > 1:
+            knobs = _boost_knobs(backend, extras, knobs, k, mult)
+            obs.inc("engine.boost_applied", backend=kind, mult=str(mult))
+
+    fingerprint = _fingerprint(backend, extras, knobs)
+    if where is not None:
+        fingerprint += (("where", pred.structure(where, meta)),)
     key = PlanKey(fingerprint=fingerprint, bucket=bucket, k=k, device=str(enc.device),
                   knobs=tuple(sorted(knobs.items())))
     with obs.timed_span("plan_lookup", histogram="engine.stage_us",
@@ -842,6 +890,8 @@ def search_backend(
     ``where=`` is a predicate over ``meta``'s columns (its structure in the
     plan key, its constants inputs); ``where_mask=`` an [n_total] bool row
     mask the caller evaluated, ANDed into the live mask on the host.
+    ``tuned=`` (a ``tune.TuneResult``) gives knob defaults and, with a boost
+    curve, the selectivity boost of a filtered search.
     """
     call = _resolve(backend, state, queries, k, allow, where, where_mask, meta, tuned,
                     kwargs)

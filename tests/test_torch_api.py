@@ -212,17 +212,14 @@ def test_reference_file_loads_in_port(metric, tmp_path):
                                           ("v10_coarse_bruteforce.mvec", 10),
                                           ("v11_tuned_ivf.mvec", 11)])
 def test_load_rejects_other_versions(name, version, tmp_path):
-    """Only v11 (autotune results) is refused now, naming ROADMAP A11: the
-    v8 fixture (an IVF index, A7), v9 and v10 (metadata columns, A6) load
-    and save their own bytes (their searches: tests/test_torch_ivf.py and
-    tests/test_torch_predicate.py)."""
+    """Every later fixture loads and saves its own bytes: v8 (an IVF index,
+    A7), v9 and v10 (metadata columns, A6) and v11 (an autotune result,
+    A11; its searches and re-tune: tests/test_torch_autotune.py); unknown
+    versions still raise (``test_unknown_versions_raise``)."""
     src = os.path.join(GOLDEN, name)
-    if version == 11:
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            MonaVec.load(src, device="cpu")
-        return
     idx = MonaVec.load(src, device="cpu")
     assert (idx.meta is not None) == (version != 8)
+    assert (idx.tuned is not None) == (version == 11)
     out = str(tmp_path / name)
     idx.save(out)
     assert _sha(out) == _sha(src)

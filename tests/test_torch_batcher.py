@@ -240,8 +240,10 @@ def test_registry_namespaces_and_401():
             call()
     with pytest.raises(KeyError, match="not found in namespace"):
         reg.get("good", "nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        reg.autotune("good", "c")
+    with pytest.raises(PermissionError, match="401"):
+        reg.autotune("bad", "c")
+    tuned = reg.autotune("good", "c", recall_target=0.9, k=4, n_queries=4)
+    assert tuned is idx.tuned and tuned.knobs == {} and tuned.met_target
 
 
 def test_registry_mutation_is_per_namespace():

@@ -389,10 +389,12 @@ def test_counters_carry_the_reference_names():
 @pytest.mark.parametrize("what,item", [("where", "A6"), ("tuned", "A11"),
                                        ("sharded", "A12"), ("observer", "A15")])
 def test_unported_engine_paths_name_their_item(what, item):
-    """Tuned knobs, sharded search and the stage observer raise naming their
-    ROADMAP item.  ``where=`` (A6) is ported: on an index with metadata it
-    equals the search with the predicate's allowlist, through ``search``
-    and through a bound ``searcher``; an index without metadata refuses it."""
+    """Sharded search and the stage observer raise naming their ROADMAP
+    item.  ``where=`` (A6) is ported: on an index with metadata it equals
+    the search with the predicate's allowlist, through ``search`` and
+    through a bound ``searcher``; an index without metadata refuses it.
+    Tuned knobs (A11) are ported: a TuneResult's knob is the default an
+    explicit keyword overrides, and the search equals the explicit one."""
     from repro_torch.core import predicate as tpred
     from repro_torch.core.allowlist import Allowlist
 
@@ -409,11 +411,20 @@ def test_unported_engine_paths_name_their_item(what, item):
             assert got[0].tobytes() == want[0].tobytes()
             assert got[1].tobytes() == want[1].tobytes()
         idx.meta = None
+    elif what == "tuned":
+        from repro_torch.tune import TuneResult
+
+        idx.enable_coarse("sign")
+        tuned = TuneResult(recall_target=0.9, k=3, n_queries=4, seed=0, met_target=True,
+                           knobs={"rescore_mult": 2}, ladder={})
+        assert engine.resolve_knobs(idx.backend, None, 3, tuned=tuned) == {"rescore_mult": 2}
+        assert engine.resolve_knobs(idx.backend, None, 3, tuned=tuned, rescore_mult=0) == {}
+        want = engine.search_backend(idx.backend, None, q, 3, rescore_mult=2)
+        got = engine.search_backend(idx.backend, None, q, 3, tuned=tuned)
+        assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            if what == "tuned":
-                engine.search_backend(idx.backend, None, q, 3, tuned=object())
-            elif what == "sharded":
+            if what == "sharded":
                 engine.search_sharded(idx, q, 3)
             else:
                 engine.set_stage_observer(None)

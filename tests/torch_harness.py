@@ -146,25 +146,43 @@ def _segments_of(idx):
 
 def port_over_reference(ref):
     """The port's MonaVec over the reference's segments, ids, tombstones and
-    next ordinal (``convert.segmented_from_arrays``); coarse codes derived by
-    the port."""
-    from repro_torch.core.convert import segmented_from_arrays
+    next ordinal (``convert.segmented_from_arrays``), with its autotune
+    result (``convert.tune_from_fields``); coarse codes derived by the
+    port."""
+    from repro_torch.core.convert import segmented_from_arrays, tune_from_fields
 
     enc = ref.backend.enc
     std = enc.std
     segs = [{"packed": np.asarray(e.packed), "qnorms": np.asarray(e.qnorms), "seed": e.seed,
              "ids": ids, "tombs": tombs} for e, ids, tombs in _segments_of(ref)]
-    return segmented_from_arrays(
+    idx = segmented_from_arrays(
         segs, next_ordinal=ref.mut.next_ordinal, metric=enc.metric, bits=enc.bits,
         dim=enc.dim, dim_pad=enc.dim_pad, n4_dims=enc.n4_dims, perm=enc.perm,
         std_mean=None if std is None else std.mean,
         std_inv_std=None if std is None else std.inv_std, coarse=enc.coarse, device="cpu")
+    idx.tuned = tune_from_fields(ref.tuned)
+    return idx
+
+
+def reference_tune(tune):
+    """The reference's TuneResult with the fields of the port's (or None)."""
+    from repro.tune.result import BoostCurve, BoostPoint, KnobRung, TuneResult
+
+    if tune is None:
+        return None
+    boost = None if tune.boost is None else BoostCurve(points=tuple(
+        BoostPoint(p.selectivity, p.mult, p.recall) for p in tune.boost.points))
+    return TuneResult(recall_target=tune.recall_target, k=tune.k, n_queries=tune.n_queries,
+                      seed=tune.seed, met_target=tune.met_target, knobs=dict(tune.knobs),
+                      ladder={name: tuple(KnobRung(r.value, r.recall) for r in rungs)
+                              for name, rungs in tune.ladder.items()},
+                      boost=boost)
 
 
 def reference_over_port(idx):
     """The reference's MonaVec over the port's segments (its coarse codes
-    derived by the reference), so that a search comparison does not hinge
-    on a boundary flip of an encode."""
+    derived by the reference) and autotune result, so that a search
+    comparison does not hinge on a boundary flip of an encode."""
     import jax.numpy as jnp
     from repro.core import BruteForceIndex, MonaVec
     from repro.core import quantize as rqz
@@ -182,7 +200,8 @@ def reference_over_port(idx):
     mut = rseg.SegmentedState(
         base_tombs=t0.copy(), next_ordinal=idx.mut.next_ordinal,
         extras=[rseg.Segment(enc=ref_enc(e), ids=ids, tombs=t.copy()) for e, ids, t in extras])
-    ref = MonaVec(BruteForceIndex(enc=ref_enc(e0), ids=ids0), mut=mut)
+    ref = MonaVec(BruteForceIndex(enc=ref_enc(e0), ids=ids0), mut=mut,
+                  tuned=reference_tune(idx.tuned))
     return ref if e0.coarse is None else ref.enable_coarse(e0.coarse)
 
 
