@@ -181,6 +181,24 @@ Phases, in order (any failure exits non-zero and prints no result line):
    card and CPU plain path: equal TuneResults, recalls 0.9625 / 0.55 / 1.0,
    tuned and safe batch latency.
 
+10. sharded retrieval and the serving CLI, after phase 9's indexes are
+    dropped.  10a: the phase-4 stand-in with phase 7a's columns and sign
+    codes, sharded over ``make_local_mesh()`` (one card) and over 4 and 7
+    shards on it (45,000 % 7 != 0: the last shard padded): full scans and
+    the ~1% and 12.5% ``where=`` searches byte-equal to the unsharded
+    graph replay, no padding id; the sign cascade at rescore_mult 8 and 32
+    on 1 shard byte-equal to the unsharded cascade, on 4 against the CPU
+    plain path over the same 4-shard mesh (99% of ids), with both recalls;
+    rm * k >= n the plain sharded scan's bytes; 0 captures after each
+    warm-up; batch median / p90 and graph device time unsharded and at 1, 4
+    and 7 shards; a tuned v11 file loaded through ``ShardedMonaVec.load``
+    searching at its tuned knob.  10b: ``python -m
+    repro_torch.launch.serve`` in-process at 45,000 x 1024: the lifecycle
+    (filter, mutate, compact, micro-batch, traces, metrics files), the
+    sharded filtered cascade, IVF with autotune then its reload: every
+    measured window 0 misses and 0 captures, the JSON's histograms, the
+    reload's tuned knobs, each phase's QPS.
+
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1918,6 +1936,293 @@ def hnsw_tune_phase(c, h, sub, exact, recall, run) -> dict:
     return out
 
 
+def sharded_device_ms(torch, sharded, kw: dict, qs, replays: int = 10) -> float:
+    """``graph_device_ms`` for a ``ShardedMonaVec`` whose shards share one
+    device: CUDA events around ``replays`` back-to-back replays of the one
+    graph a search of 64 at k=10 with ``kw`` captures on a fresh handle of
+    the same shards."""
+    fresh = dataclasses.replace(sharded)       # the same shards, no graphs
+    fresh.search(qs[:64], k=10, **kw)
+    (graph,) = fresh.graphs.values()
+    graph.graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def serve_cli(argv: list) -> str:
+    """``python -m repro_torch.launch.serve`` in this process: its output,
+    echoed."""
+    import io
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if not line.startswith("[trace]"):
+            say(f"  {line}")
+    return text
+
+
+def split_mesh(mesh_cls, devices: tuple):
+    """A mesh of ``devices`` whose shards form two device groups (the first
+    half, the second), whatever the devices: the several-device plan on one
+    card."""
+    half = len(devices) // 2
+
+    @dataclasses.dataclass(frozen=True)
+    class SplitMesh(mesh_cls):
+        @property
+        def groups(self):
+            return ((self.devices[0], tuple(range(half))),
+                    (self.devices[half], tuple(range(half, len(self.devices)))))
+
+    return SplitMesh(tuple(devices))
+
+
+def shard_serve_phase(c) -> dict:
+    """Phase 10: sharded retrieval through the engine's graphs (10a) and the
+    serving CLI in-process (10b), after phase 9's indexes are dropped.
+    ``c`` carries the main phase's tensors and helpers."""
+    torch, np, dev = c.torch, c.np, c.dev
+    import re
+    from repro_torch import MonaVec, engine
+    from repro_torch.core import scoring
+    from repro_torch.core.predicate import Eq, Lt
+    from repro_torch.core.segments import SENTINEL_ID
+    from repro_torch.dist import ShardedMonaVec
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+
+    corpus, queries, expect = c.corpus, c.queries, c.expect
+    out: dict = {"launches": {}}
+    cache = engine.plan_cache()
+    preds = {"lang_date": Eq("lang", "en") & Lt("date", 80_000),   # phase 7a's ~1%
+             "eq_lang": Eq("lang", "en")}                          # and 12.5%
+    full_kws = {"full": {}, **{name: {"where": p} for name, p in preds.items()}}
+
+    def run(index, kw: dict, batches: int = BATCHES):
+        res = [index.search(queries[64 * i: 64 * (i + 1)], k=10, **kw) for i in range(batches)]
+        return np.concatenate([r[0] for r in res]), np.concatenate([r[1] for r in res])
+
+    def warm_run(index, kw: dict):
+        """One warm-up search (the capture), then ``run`` with its captures."""
+        index.search(queries[:64], k=10, **kw)
+        before = cache.stats.snapshot()
+        got = run(index, kw)
+        return got, cache.stats.since(before).captures
+
+    qt = torch.from_numpy(queries).to(dev)
+    exact = scoring.topk(scoring.score_f32(qt, torch.from_numpy(corpus).to(dev), "cosine"),
+                         10)[1].cpu().numpy()
+    del qt
+
+    # ---- 10a. sharded search -------------------------------------------------
+    t_phase = time.perf_counter()
+    idx = MonaVec.build(corpus, meta=planted_columns(np, np.random.default_rng(SEED + 7)),
+                        coarse="sign")
+    base = {name: run(idx, kw) for name, kw in full_kws.items()}
+    base_cascade = {rm: run(idx, {"rescore_mult": rm}) for rm in RESCORE_MULTS}
+    local = make_local_mesh()
+    expect(local.size == 1 and local.devices == (dev,),
+           f"10a: make_local_mesh() is {local.devices}, not the one card")
+    meshes = {1: local, 4: Mesh.repeat(dev, 4), 7: Mesh.repeat(dev, 7)}
+    sharded = {s: idx.shard(mesh) for s, mesh in meshes.items()}
+    out["shards"] = {s: {"rows_per_shard": int(sh.shards[0].packed.shape[0]),
+                         "padding_rows": int(sh.enc.n - N)} for s, sh in sharded.items()}
+    c.reset_counts()
+    torch.cuda.synchronize()
+    full: dict = {}
+    for s, sh in sharded.items():
+        for name, kw in full_kws.items():
+            got, captures = warm_run(sh, kw)
+            real = got[1][got[1] != SENTINEL_ID]
+            full[f"{s}_{name}"] = ok = {
+                "equals_unsharded": same_result(got, base[name]),
+                "no_padding_id": bool((real < N).all()), "captures_after_warmup": captures}
+            expect(ok["equals_unsharded"], f"10a: {s} shard(s), {name}: not byte-equal to the "
+                                           "unsharded graph replay")
+            expect(ok["no_padding_id"], f"10a: {s} shard(s), {name}: a padding id surfaced")
+            expect(captures == 0, f"10a: {s} shard(s), {name}: {captures} captures after "
+                                  "the warm-up")
+    torch.cuda.synchronize()
+    out["launches"]["10a_full"] = got_l = c.read_counts()
+    expect(got_l["fwht"] > 0 and got_l["nibble_dot"] > 0,
+           f"10a: the sharded full scans did not run B2 and B1 ({got_l})")
+    out["full"] = full
+    say(f"10a: shards {out['shards']}; full / ~1% / 12.5% byte-equal to the unsharded replay, "
+        f"no padding id, captures after warm-up: {full}; launches {got_l}")
+
+    # The path of shards on several devices (``plan._MeshGraph``: a graph a
+    # device, an event each, the candidates copied to the first device, the
+    # merge's graph) on the one card: 4 shards in two groups of one device.
+    split = idx.shard(split_mesh(Mesh, meshes[4].devices))
+    split_ok = {}
+    for name in ("full", "eq_lang"):
+        got, captures = warm_run(split, full_kws[name])
+        split_ok[name] = same_result(got, base[name]) and captures == 0
+    kinds = sorted({type(g).__name__ for g in split.graphs.values()})
+    out["two_groups"] = {"equals_unsharded": split_ok, "graphs": kinds}
+    expect(all(split_ok.values()) and kinds == ["_MeshGraph"],
+           f"10a: two device groups: {split_ok}, graphs {kinds}")
+    say(f"10a: 4 shards in two device groups (the several-device graphs on one card): "
+        f"byte-equal to the unsharded replay with 0 captures after warm-up {split_ok}; "
+        f"graphs {kinds}")
+    del split
+
+    # The cascade: one shard keeps the unsharded survivors; four keep m each,
+    # held against the port's plain path on the CPU over the same 4-shard mesh.
+    enc = idx.backend.enc
+    cpu4 = MonaVec.from_arrays(enc.packed.cpu().numpy(), enc.qnorms.cpu().numpy(),
+                               seed=enc.seed, metric="cosine", bits=enc.bits, dim=DIM,
+                               dim_pad=enc.dim_pad, device="cpu").enable_coarse("sign").shard(
+        Mesh.repeat("cpu", 4))
+    cpu_q = 64 * CPU_CASCADE_BATCHES
+    cascade: dict = {}
+    c.reset_counts()
+    torch.cuda.synchronize()
+    for rm in RESCORE_MULTS:
+        one, cap1 = warm_run(sharded[1], {"rescore_mult": rm})
+        four, cap4 = warm_run(sharded[4], {"rescore_mult": rm})
+        cpu = run(cpu4, {"rescore_mult": rm}, CPU_CASCADE_BATCHES)
+        ids_equal = float(np.mean(four[1][:cpu_q] == cpu[1]))
+        cascade[rm] = ok = {
+            "one_equals_unsharded": same_result(one, base_cascade[rm]),
+            "four_ids_equal_cpu": ids_equal,
+            "four_recall_at_10": recall_at_10(four[1], exact),
+            "unsharded_recall_at_10": recall_at_10(base_cascade[rm][1], exact),
+            "captures_after_warmup": cap1 + cap4}
+        expect(ok["one_equals_unsharded"], f"10a: sign_{rm} on 1 shard differs from the "
+                                           "unsharded cascade")
+        expect(ids_equal >= 0.99, f"10a: sign_{rm} on 4 shards: ids {ids_equal:.4f} equal to "
+                                  "the CPU plain path's (< 0.99)")
+        expect(cap1 + cap4 == 0, f"10a: sign_{rm}: {cap1 + cap4} captures after the warm-up")
+    collapse = {s: same_result(run(sharded[s], {"rescore_mult": N // 10}, 1),
+                               run(sharded[s], {}, 1)) for s in (1, 4)}
+    torch.cuda.synchronize()
+    out["launches"]["10a_cascade"] = got_l = c.read_counts()
+    expect(all(got_l[k] > 0 for k in ("fwht", "sign_hamming", "gather_nibble_dot")),
+           f"10a: the sharded cascades did not run B2, B6 and B4 ({got_l})")
+    expect(all(collapse.values()), f"10a: rescore_mult * k >= n is not the plain sharded "
+                                   f"scan's bytes ({collapse})")
+    out["cascade"], out["collapse_equals_full"] = cascade, collapse
+    say(f"10a: sign cascades {cascade}; rm*k >= n = the plain scan {collapse}; "
+        f"launches {got_l}")
+
+    # Batch latency (host clock) and graph device time, unsharded and sharded.
+    timing = {"unsharded": {**batch_latencies(lambda q: idx.search(q, k=10), queries,
+                                              BATCHES),
+                            "device_ms": graph_device_ms(torch, idx, {}, queries)}}
+    for s, sh in sharded.items():
+        timing[f"{s}_shards"] = {**batch_latencies(lambda q, sh=sh: sh.search(q, k=10),
+                                                   queries, BATCHES),
+                                 "device_ms": sharded_device_ms(torch, sh, {}, queries)}
+    out["timing"] = timing
+    for name, t in timing.items():
+        say(f"10a timing {name}: batch median {t['median_ms']:.4f} ms, p90 {t['p90_ms']:.4f} "
+            f"ms, graph device {t['device_ms']:.4f} ms ({c.smi})")
+    # Where the device time goes: each plan's stages run eagerly on the card
+    # under torch.profiler (a graph replay is never traced).
+    from repro_torch.engine import plan as plan_mod
+    profiles = {"unsharded": profile_window(torch, lambda: search_eager(idx, queries[:64]),
+                                            "10a unsharded, eager stages")}
+    on_card, plan_mod._on_card = plan_mod._on_card, (lambda d: False)
+    try:
+        for s in (4, 7):
+            profiles[f"{s}_shards"] = profile_window(
+                torch, lambda sh=sharded[s]: sh.search(queries[:64], k=10),
+                f"10a {s} shards, eager stages")
+    finally:
+        plan_mod._on_card = on_card
+    out["profiles"] = profiles
+
+    # A v11 file of the tuned cascade index, loaded sharded: the tuned knob.
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tdir:
+        path = str(Path(tdir) / "tuned.mvec")
+        idx.autotune(recall_target=TUNE_TARGET, k=TUNE_K, n_queries=TUNE_QUERIES)
+        knob = idx.tuned.knobs.get("rescore_mult", 0)
+        idx.save(path)
+        loaded = ShardedMonaVec.load(path)
+        tuned_ok = (loaded.tuned is not None and loaded.tuned.knobs == idx.tuned.knobs
+                    and same_result(run(loaded, {}, 2),
+                                    run(sharded[1], {"rescore_mult": knob}, 2)))
+    out["tuned"] = {"knobs": dict(idx.tuned.knobs), "loaded_equals_explicit": tuned_ok}
+    expect(tuned_ok, f"10a: the loaded v11 file does not search at its tuned knob {knob}")
+    say(f"10a: v11 tuned knobs {idx.tuned.knobs} -> ShardedMonaVec.load searches as "
+        f"rescore_mult={knob}: {tuned_ok}")
+    del idx, sharded, loaded, cpu4
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 10a: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 10b. the serving CLI in-process ---------------------------------------------
+    t_phase = time.perf_counter()
+    shape = ["--n", str(N), "--dim", str(DIM)]
+    cli: dict = {}
+    texts: dict = {}
+    c.reset_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tdir:
+        td = Path(tdir)
+        runs = {
+            "lifecycle": shape + ["--filter-every", "8", "--mutate", "--compact",
+                                  "--micro-batch", "8", "--trace-sample", "5",
+                                  "--metrics-json", str(td / "p.json"),
+                                  "--metrics-prom", str(td / "q.prom"),
+                                  "--save", str(td / "f.mvec")],
+            "shard": shape + ["--shard", "--filter-every", "8", "--coarse", "sign",
+                              "--rescore-mult", "8", "--metrics-json", str(td / "s.json")],
+            "ivf": shape + ["--index", "ivf", "--autotune", "--recall-target", "0.95",
+                            "--save", str(td / "g.mvec")],
+            "ivf_load": ["--load", str(td / "g.mvec")]}
+        for name, argv in runs.items():
+            say(f"10b: serve {' '.join(argv)}")
+            t0 = time.perf_counter()
+            text = serve_cli(argv)
+            phases = re.findall(r"\[serve\] (\w+): (\d+) queries in ([\d.]+)s -> (\d+) QPS",
+                                text)
+            windows = re.findall(r"\[serve\] (\w+): plan cache hits=(\d+) misses=(\d+) "
+                                 r"captures=(\d+)", text)
+            clean = bool(windows) and len(windows) == len(phases) and all(
+                m == "0" and cap == "0" for _, _, m, cap in windows)
+            texts[name] = text
+            cli[name] = {"seconds": time.perf_counter() - t0,
+                         "qps": {p: int(q) for p, _, _, q in phases}, "clean_windows": clean}
+            expect(clean, f"10b {name}: a measured window has a miss or a capture ({windows})")
+        snap = json.loads((td / "p.json").read_text())["histograms"]
+        expect(any(k.startswith("engine.stage_us{") for k in snap),
+               "10b lifecycle: the metrics JSON holds no engine.stage_us")
+        expect("plan_cache_hits" in (td / "q.prom").read_text(),
+               "10b lifecycle: the Prometheus text holds no plan_cache_hits")
+        snap = json.loads((td / "s.json").read_text())["histograms"]
+        expect(any(k.startswith("engine.stage_us{") for k in snap)
+               and any(k.startswith("dist.search_us{") for k in snap),
+               "10b shard: the metrics JSON holds no engine.stage_us or dist.search_us")
+        tuned = MonaVec.load(str(td / "g.mvec")).tuned
+        reload_ok = tuned is not None and cli["ivf_load"]["clean_windows"] and (
+            f"[serve] static: knobs={tuned.knobs} (tuned)" in texts["ivf_load"])
+        cli["ivf_load"]["tuned_knobs"] = None if tuned is None else dict(tuned.knobs)
+        expect(reload_ok, "10b: the reload does not serve at the tuned knobs")
+    torch.cuda.synchronize()
+    out["launches"]["10b_cli"] = got_l = c.read_counts()
+    expect(all(got_l[k] > 0 for k in ("fwht", "nibble_dot", "sign_hamming",
+                                        "gather_nibble_dot")),
+           f"10b: the CLI runs did not run B2, B1, B6 and B4 ({got_l})")
+    out["cli"] = cli
+    for name, r in cli.items():
+        say(f"10b {name}: {r['seconds']:.1f} s, QPS by phase {r['qps']} ({c.smi}), "
+            f"windows clean {r['clean_windows']}")
+    say(f"10b: launches {got_l}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 10b: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
@@ -3391,6 +3696,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"phase 9 (a, b, d): {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 10. sharded retrieval and the serving CLI ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    report["shard_serve"] = shard_serve_phase(SimpleNamespace(
+        torch=torch, np=np, dev=dev, corpus=corpus, queries=queries, expect=expect,
+        reset_counts=reset_counts, read_counts=read_counts, smi=smi))
+    say(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/nibble_dot.cu",
@@ -3436,6 +3750,11 @@ def main() -> int:
     for entry in kernels:
         entry["launches_phase9"] = {path: counts[entry["name"]] for path, counts in
                                     sorted(report["autotune"]["launches"].items())}
+    # Phase 10's paths: the sharded full scans and filtered searches on 1, 4
+    # and 7 shards (10a), the sharded cascades (10a), the three CLI runs (10b).
+    for entry in kernels:
+        entry["launches_phase10"] = {path: counts[entry["name"]] for path, counts in
+                                     report["shard_serve"]["launches"].items()}
     report["kernels"] = kernels
     report["precision_launches"] = precision_launches
     report["failures"] = FAILURES

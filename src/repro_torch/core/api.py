@@ -41,7 +41,8 @@ arrays on the host.  Every search runs through the engine
 replayed.  ``save`` writes v11 with an autotune result, v10 with coarse
 codes, v9 with metadata columns, v8 once the index is mutated, v7 with a
 permutation and v6 otherwise; an IVF index carries its centroids and lists
-in INDEX_DATA, an HNSW index its graph.  Sharding is ROADMAP A12.
+in INDEX_DATA, an HNSW index its graph.  ``shard(mesh)`` splits a static
+BruteForce index over a device mesh (``repro_torch.dist.ShardedMonaVec``).
 """
 
 from __future__ import annotations
@@ -70,10 +71,6 @@ _TYPE_CODE = {BruteForceIndex: fmt.INDEX_BRUTEFORCE, IvfFlatIndex: fmt.INDEX_IVF
               HnswIndex: fmt.INDEX_HNSW}
 _BUILD_KNOBS = {"bruteforce": frozenset(), "ivf": frozenset({"nlist", "train_iters"}),
                 "hnsw": frozenset({"m", "ef_construction"})}
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass
@@ -354,7 +351,12 @@ class MonaVec:
                              tuned=self.tuned, **kwargs)
 
     def shard(self, mesh=None):
-        raise _unported("shard", "A12")
+        """This index's corpus sharded over a device mesh (default: one shard
+        per local device of the index's device type): a ``ShardedMonaVec``
+        with the same ``search()`` contract and identical results (BruteForce
+        backend only; a mutated index raises: ``compact()`` first)."""
+        from ..dist.sharded_index import ShardedMonaVec
+        return ShardedMonaVec.shard(self, mesh)
 
     # -- search ------------------------------------------------------------
 

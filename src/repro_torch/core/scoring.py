@@ -27,6 +27,16 @@ def adjust_scores(raw: torch.Tensor, qnorms: torch.Tensor, metric: str) -> torch
     raise ValueError(f"unknown metric {metric!r}")
 
 
+def score_packed_ref(q_rot: torch.Tensor, enc) -> torch.Tensor:
+    """Reference scoring: [b, d'] rotated f32 queries against an ``Encoded``
+    corpus -> adjusted [b, n].  Decodes the whole corpus, then one product:
+    the plain oracle for small corpora (an O(n d') f32 intermediate)."""
+    from . import quantize as qz
+
+    raw = q_rot @ qz.decode(enc).T
+    return adjust_scores(raw, enc.qnorms, enc.metric)
+
+
 def score_f32(q: torch.Tensor, corpus: torch.Tensor, metric: str) -> torch.Tensor:
     """Exact f32 scores, higher is better (the ground truth for recall)."""
     if metric == COSINE:

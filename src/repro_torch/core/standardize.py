@@ -46,6 +46,29 @@ class GlobalStd:
         return x / inv + mean
 
 
+@dataclasses.dataclass(frozen=True)
+class PerDimWhiten:
+    """Ablation baseline only (Mahalanobis: breaks L2 ordering, paper §3.1.1)."""
+
+    mean: np.ndarray       # [d] f32
+    inv_std: np.ndarray    # [d] f32
+
+    @staticmethod
+    def fit(sample, eps: float = 1e-6) -> "PerDimWhiten":
+        """Per-dim statistics in float64 on the host, kept as f32."""
+        if isinstance(sample, torch.Tensor):
+            sample = sample.detach().cpu().numpy()
+        x = np.asarray(sample, dtype=np.float64)
+        sigma = np.maximum(x.std(axis=0), eps)
+        return PerDimWhiten(mean=x.mean(axis=0).astype(np.float32),
+                            inv_std=(1.0 / sigma).astype(np.float32))
+
+    def transform(self, x: torch.Tensor) -> torch.Tensor:
+        mean = torch.from_numpy(self.mean).to(x.device)
+        inv = torch.from_numpy(self.inv_std).to(x.device)
+        return (x - mean) * inv
+
+
 @functools.lru_cache(maxsize=64)
 def _scalars(mean: float, inv_std: float, device: torch.device):
     # The f32 scalars as 0-d tensors, copied to the device once: a fresh

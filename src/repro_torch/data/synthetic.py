@@ -28,6 +28,18 @@ def embedding_corpus(seed: int, n: int, dim: int, *, n_clusters: int = 64,
     return x.astype(np.float32)
 
 
+def pixel_corpus(seed: int, n: int, dim: int) -> np.ndarray:
+    """Raw-magnitude, non-Gaussian data (the fashion-mnist surrogate): sparse
+    positive "pixels" with block structure, the setting where fit() matters."""
+    g = _rng(seed, 0, 3)
+    base = g.random((n, dim)).astype(np.float32) * 255.0
+    mask = g.random((n, dim)) < 0.55                  # many near-zero pixels
+    out = np.where(mask, 0.0, base)
+    prototypes = g.random((10, dim)).astype(np.float32) * 128.0
+    out += prototypes[g.integers(0, 10, size=n)]
+    return out.astype(np.float32)
+
+
 def queries_from_corpus(corpus: np.ndarray, seed: int, n_q: int,
                         noise: float = 0.15) -> np.ndarray:
     """Noisy copies of seeded corpus rows."""

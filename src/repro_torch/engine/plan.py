@@ -65,7 +65,13 @@ curve widens ``nprobe`` / ``rescore_mult`` on a selective filtered search:
 the filter's exact count (``tune.selectivity``, a host sync taken here while
 the search resolves, never inside a capture) picks the multiplier before the
 plan is keyed, so a boosted budget is an ordinary plan key with its own
-graph.  Sharded search is ROADMAP A12 and the stage observer A15.
+graph.
+
+A ``ShardedMonaVec`` search (``search_sharded``) is a ``ShardedPlan``: the
+rotation, each shard's local scan or cascade and stable top-k, and the
+stable cross-shard merge (``dist.retrieval``).  Its graphs live with the
+sharded index: one graph when every shard is on one device, else one per
+device and the merge's on the first.  The stage observer is ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -405,8 +411,12 @@ class SearchPlan:
         if graph is None or not graph.reads(call.arrays):
             for key in graphs_to_free(graphs, self.key, call.segments, cache):
                 del graphs[key]
-            graph = graphs[self.key] = _Graph(self, call, cache.stats)
+            graph = graphs[self.key] = self.capture(call, cache.stats)
         return graph.replay(call)
+
+    def capture(self, call: "_Call", stats: PlanStats):
+        """Capture this plan's graphs over ``call.arrays``."""
+        return _Graph(self, call, stats)
 
     def run_eager(self, call: "_Call", q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stages run eagerly on the index's device, no graph, at
@@ -915,8 +925,249 @@ def search_eager(backend: Any, state: Any, queries, k: int, *,
     return _finish(call, vals, pos, call.b)
 
 
-def search_sharded(*args, **kwargs):
-    raise _unported("sharded search", "A12")
+@dataclasses.dataclass
+class ShardedPlan(SearchPlan):
+    """A sharded search's plan: on each distinct device of the mesh, the
+    rotation and that device's shards' local stages (``ShardScan.local``),
+    then the merge on the first device.  ``fn`` runs it all, device after
+    device: eagerly on the CPU, and on the card as one captured graph when
+    every shard is on one device.  Over several devices ``_MeshGraph``
+    captures one graph per device and one for the merge."""
+
+    scan: Any = None
+    groups: tuple = ()        # mesh.groups: (device, shard indices), first device first
+    width: int = 2            # tensors bound per shard: packed, qnorms[, ccodes]
+    per: int = 0              # rows per shard
+    rotate: Optional[Callable] = None
+
+    def __post_init__(self) -> None:
+        self.fn = self._run
+
+    def local(self, group: int, q: torch.Tensor, masks: dict, arrays: tuple) -> list:
+        """(scores, global ids) of each shard of ``groups[group]``, in order:
+        the queries rotated on the group's device, then each shard's stage
+        (``masks[s]`` its admissible rows, or None)."""
+        _, shards = self.groups[group]
+        q_rot = self.rotate(q, arrays[len(arrays) - len(self.groups) + group])
+        w = self.width
+        return [self.scan.local(s, self.scan.n_valid, q_rot, *arrays[w * s: w * (s + 1)],
+                                mask=masks[s]) for s in shards]
+
+    def _masks(self, live: torch.Tensor, shards) -> dict:
+        per = self.per
+        return {s: live[s * per: (s + 1) * per] if self.scan.with_mask else None
+                for s in shards}
+
+    def _run(self, q, q_valid, live, arrays, consts):
+        outs: dict = {}
+        for g, (dev, shards) in enumerate(self.groups):
+            got = self.local(g, q.to(dev), self._masks(live.to(dev), shards), arrays)
+            outs.update(zip(shards, got))
+        order = sorted(outs)
+        return self.scan.merge([outs[s][0] for s in order], [outs[s][1] for s in order])
+
+    def capture(self, call: "_Call", stats: PlanStats):
+        if len(self.groups) == 1:
+            return _Graph(self, call, stats)
+        return _MeshGraph(self, call, stats)
+
+
+class _MeshGraph:
+    """A sharded plan's graphs over shards on several devices: one graph per
+    device (the rotation and its shards' local stages, over static queries
+    and masks of its own) and the merge's graph on the first device.  A
+    replay copies the inputs in, replays each device's graph, records an
+    event on each, makes the first device's stream wait for all of them,
+    copies every shard's [bucket, k_local] candidates into static buffers
+    there and replays the merge: no host sync per shard.  Not yet run on
+    more than one card (ROADMAP A12)."""
+
+    def __init__(self, plan: ShardedPlan, call: "_Call", stats: PlanStats) -> None:
+        bucket, per = plan.key.bucket, plan.per
+        self.plan = plan
+        self.arrays, self.segments = call.arrays, call.segments
+        self.q_host = _pinned(torch.zeros((bucket, plan.dim), dtype=torch.float32))
+        self.live_host: Optional[np.ndarray] = None
+        self.inputs, self.parts = [], []
+        for g, (dev, shards) in enumerate(plan.groups):
+            q = torch.zeros((bucket, plan.dim), dtype=torch.float32, device=dev)
+            live = torch.ones(per * len(shards), dtype=torch.bool, device=dev)
+            masks = {s: live[i * per: (i + 1) * per] if plan.scan.with_mask else None
+                     for i, s in enumerate(shards)}
+
+            def run(g=g, q=q, masks=masks):
+                return plan.local(g, q, masks, self.arrays)
+
+            _warm_up(dev, run)
+            self.parts.append(_Captured(run, dev))
+            self.inputs.append((q, live))
+        self.dev0 = plan.groups[0][0]
+        cand: dict = {}
+        for (_, shards), part in zip(plan.groups, self.parts):
+            for s, (v, gid) in zip(shards, part.out):
+                cand[s] = (torch.empty_like(v, device=self.dev0),
+                           torch.empty_like(gid, device=self.dev0))
+        self.cand = [cand[s] for s in sorted(cand)]
+
+        def merge():
+            return plan.scan.merge([c[0] for c in self.cand], [c[1] for c in self.cand])
+
+        _warm_up(self.dev0, merge)
+        self.merge = _Captured(merge, self.dev0)
+        self.vals, self.pos = self.merge.out
+        self.vals_host, self.pos_host = _pinned(self.vals), _pinned(self.pos)
+        stats.captures += 1
+        obs.inc("plan_cache.captures")
+
+    def reads(self, arrays: tuple) -> bool:
+        return _same_tensors(arrays, self.arrays)
+
+    def replay(self, call: "_Call"):
+        plan, b = self.plan, call.b
+        self.q_host.copy_(call.q)
+        copy_live = call.live is not None and (
+            self.live_host is None or not np.array_equal(self.live_host, call.live))
+        done = []
+        for ((dev, shards), part, (q, live)) in zip(plan.groups, self.parts, self.inputs):
+            with torch.cuda.device(dev):
+                q.copy_(self.q_host, non_blocking=True)
+                if copy_live:
+                    live.copy_(torch.from_numpy(np.concatenate(
+                        [call.live[s * plan.per: (s + 1) * plan.per] for s in shards])))
+                part.replay()
+                event = torch.cuda.Event()
+                event.record()
+                done.append(event)
+        if copy_live:
+            self.live_host = call.live.copy()
+        with torch.cuda.device(self.dev0):
+            stream = torch.cuda.current_stream()
+            for event in done:
+                stream.wait_event(event)
+            for (_, shards), part in zip(plan.groups, self.parts):
+                for s, (v, gid) in zip(shards, part.out):
+                    self.cand[s][0].copy_(v, non_blocking=True)
+                    self.cand[s][1].copy_(gid, non_blocking=True)
+            self.merge.replay()
+            self.vals_host.copy_(self.vals, non_blocking=True)
+            self.pos_host.copy_(self.pos, non_blocking=True)
+            _wait()
+        return self.vals_host[:b].clone(), self.pos_host[:b].clone()
+
+
+def search_sharded(index: Any, queries, k: int, *, where_mask: Optional[np.ndarray] = None,
+                   rescore_mult: Optional[int] = None, tuned: Any = None,
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """A ``ShardedMonaVec`` search as a cached plan: the same bucketing, the
+    same counters and the same [b, k] sentinel-padded contract as the
+    single-device engine.
+
+    ``where_mask`` is an [n] boolean row-admissibility mask, applied in
+    every shard before its local top-k: slots with no admissible row come
+    back SENTINEL_ID / NEG, as on the single-device filtered path.  On the
+    card it is an input of the plan's graph, copied in before a replay.
+
+    ``rescore_mult=r > 0`` (else ``tuned.knobs``'s) selects the binarized
+    cascade inside each shard (coarse proxy -> local survivor top-m ->
+    gathered rescore -> local top-k), normalized as on one device: when
+    m = r*k covers the corpus the knob drops away and the plan is the plain
+    sharded scan (the m = n bit-identity pin).  A tuned boost curve widens r
+    by the mask's exact popcount, taken on the host before the plan key."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    enc, mesh, n = index.enc, index.mesh, index.n
+    q = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32))
+    if q.shape[-1] != enc.dim:
+        raise ValueError(f"queries have dim {q.shape[-1]}, the index has {enc.dim}")
+    b = int(q.shape[0])
+    bucket = shape_bucket(b)
+    k_eff = min(k, n)
+    masked = where_mask is not None
+    if masked:
+        where_mask = np.asarray(where_mask, dtype=bool)
+        if where_mask.shape != (n,):
+            raise ValueError(f"where_mask covers {where_mask.shape} rows but the index has {n}")
+    if rescore_mult is None and tuned is not None:
+        rescore_mult = dict(getattr(tuned, "knobs", {})).get("rescore_mult")
+    rm = 0 if rescore_mult is None else int(rescore_mult)
+    if rm < 0:
+        raise ValueError(f"rescore_mult must be >= 0, got {rm}")
+    boost = None if tuned is None else getattr(tuned, "boost", None)
+    if boost is not None and masked and rm > 0 and n > 0:
+        # A sharded corpus is static (no tombstones): the selectivity is the
+        # mask's exact popcount over the whole corpus.
+        mult = boost.multiplier(int(np.count_nonzero(where_mask)) / n)
+        if mult > 1:
+            rm *= int(mult)
+            obs.inc("engine.boost_applied", backend="ShardedMonaVec", mult=str(mult))
+    if rm > 0 and enc.ccodes is None:
+        raise ValueError(
+            "rescore_mult requires an index built with a binarized coarse code "
+            "(MonaVec.build(..., coarse='sign'|'crumb'))")
+    if rm * k_eff >= n:
+        rm = 0              # a rescore of every row is the full scan
+    cascade = rm > 0
+    # Content-keyed like search_backend: the plan holds scalars only (no
+    # tensor, no index), and same-configuration corpora on one mesh share it.
+    key = PlanKey(
+        fingerprint=("ShardedMonaVec", tuple(str(d) for d in mesh.devices),
+                     tuple(shards for _, shards in mesh.groups), n, _enc_sig(enc),
+                     enc.metric, masked),
+        bucket=bucket, k=k_eff, device=str(mesh.devices[0]),
+        knobs=(("rescore_mult", rm),) if cascade else ())
+    per, n_pad = index.shards[0].packed.shape[0], enc.n
+
+    def build() -> ShardedPlan:
+        from ..dist.retrieval import make_cascade_topk_shardmap, make_scan_topk_shardmap
+        common = dict(metric=enc.metric, k=k_eff, bits=enc.bits, n4_dims=enc.n4_dims,
+                      n_valid=n, with_mask=masked)
+        scan = (make_cascade_topk_shardmap(mesh, kind=enc.coarse, m=rm * k_eff, **common)
+                if cascade else make_scan_topk_shardmap(mesh, **common))
+        metric, std, seed = enc.metric, enc.std, enc.seed
+
+        def rotate(q: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
+            # quantize.encode_query's ops, so the bytes are the unsharded plan's.
+            rot = rhdh_apply(prepare(q, metric, std), seed, normalized=False)
+            return rot if perm is None else rot[..., perm]
+
+        return ShardedPlan(key=key, fn=None, dim=enc.dim, n_total=n_pad, scan=scan,
+                           groups=mesh.groups, width=3 if cascade else 2, per=per,
+                           rotate=rotate)
+
+    kind = "ShardedMonaVec"
+    obs.inc("engine.searches", backend=kind)
+    obs.inc("engine.query_rows", b, backend=kind)
+    with obs.timed_span("plan_lookup", histogram="engine.stage_us",
+                        labels={"backend": kind, "stage": "plan_lookup"}) as sp:
+        plan = _CACHE.get_or_build(key, build)
+        if sp is not None and obs.current_trace() is not None:
+            sp.attrs.update(plan=plan_key_digest(key), shards=mesh.size)
+    if bucket != b:
+        q = torch.nn.functional.pad(q, (0, 0, 0, bucket - b))
+    live = None if not masked else np.concatenate(
+        [where_mask, np.zeros(n_pad - n, dtype=bool)])
+    call = _Call(plan=plan, q=q, b=b, live=live, arrays=index.bound(cascade),
+                 segments=tuple(s.packed for s in index.shards), consts=(), ids=index.ids,
+                 kind=kind)
+    stage = "cascade_shard_scan" if cascade else "shard_scan"
+    with obs.timed_span(stage, histogram="engine.stage_us",
+                        labels={"backend": kind, "stage": stage},
+                        attrs={"shards": mesh.size, "rows": b}):
+        vals, gids = plan.execute(call, index.graphs, _CACHE)
+    with obs.timed_span("sync", histogram="engine.stage_us",
+                        labels={"backend": kind, "stage": "sync"}):
+        vals = vals[:b].cpu().numpy()
+        gids = gids[:b].cpu().numpy()
+    # Inadmissible slots (filtered rows, dead cascade survivors, padding)
+    # are -inf until here; they take the engine-wide sentinels NEG and
+    # SENTINEL_ID, the reference's order of conversion.
+    bad = ~np.isfinite(vals)
+    vals = np.where(bad, _NEG, vals).astype(np.float32)
+    ids = np.where(bad, seg.SENTINEL_ID, index.ids[np.where(bad, 0, gids)])
+    if k_eff < k:   # k > n: sentinel-pad to the full [b, k] contract
+        vals = np.pad(vals, ((0, 0), (0, k - k_eff)), constant_values=_NEG)
+        ids = np.pad(ids, ((0, 0), (0, k - k_eff)), constant_values=seg.SENTINEL_ID)
+    return vals, ids
 
 
 # ---------------------------------------------------------------------------
@@ -964,6 +1215,6 @@ class Searcher:
             raise
 
     def warmup(self, batch_size: int = 1) -> "Searcher":
-        bucket = shape_bucket(batch_size)
-        self(np.zeros((bucket, self.index.backend.enc.dim), dtype=np.float32))
+        enc = self.index.enc if hasattr(self.index, "enc") else self.index.backend.enc
+        self(np.zeros((shape_bucket(batch_size), enc.dim), dtype=np.float32))
         return self

@@ -389,12 +389,13 @@ def test_counters_carry_the_reference_names():
 @pytest.mark.parametrize("what,item", [("where", "A6"), ("tuned", "A11"),
                                        ("sharded", "A12"), ("observer", "A15")])
 def test_unported_engine_paths_name_their_item(what, item):
-    """Sharded search and the stage observer raise naming their ROADMAP
-    item.  ``where=`` (A6) is ported: on an index with metadata it equals
-    the search with the predicate's allowlist, through ``search`` and
-    through a bound ``searcher``; an index without metadata refuses it.
-    Tuned knobs (A11) are ported: a TuneResult's knob is the default an
-    explicit keyword overrides, and the search equals the explicit one."""
+    """The stage observer raises naming its ROADMAP item.  ``where=`` (A6)
+    is ported: on an index with metadata it equals the search with the
+    predicate's allowlist, through ``search`` and through a bound
+    ``searcher``; an index without metadata refuses it.  Tuned knobs (A11)
+    are ported: a TuneResult's knob is the default an explicit keyword
+    overrides, and the search equals the explicit one.  Sharded search
+    (A12) is ported: on one shard it gives the unsharded search's bytes."""
     from repro_torch.core import predicate as tpred
     from repro_torch.core.allowlist import Allowlist
 
@@ -422,12 +423,15 @@ def test_unported_engine_paths_name_their_item(what, item):
         want = engine.search_backend(idx.backend, None, q, 3, rescore_mult=2)
         got = engine.search_backend(idx.backend, None, q, 3, tuned=tuned)
         assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()
+    elif what == "sharded":
+        sharded = idx.shard()
+        want = idx.search(q, 3)
+        for got in (engine.search_sharded(sharded, q, 3), sharded.searcher(k=3)(q)):
+            assert got[0].tobytes() == want[0].tobytes()
+            assert got[1].tobytes() == want[1].tobytes()
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            if what == "sharded":
-                engine.search_sharded(idx, q, 3)
-            else:
-                engine.set_stage_observer(None)
+            engine.set_stage_observer(None)
     with pytest.raises(ValueError, match="where= requires an index built with metadata"):
         idx.searcher(k=3, where=object())(q)
 
