@@ -198,6 +198,23 @@ Phases, in order (any failure exits non-zero and prints no result line):
     sharded filtered cascade, IVF with autotune then its reload: every
     measured window 0 misses and 0 captures, the JSON's histograms, the
     reload's tuned knobs, each phase's QPS.
+11. the determinism audit, after phase 10's indexes are dropped, in a child
+    process whose environment adds ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (a
+    cuBLAS call under ``torch.use_deterministic_algorithms(True)`` needs it
+    before its handle exists; the other phases run without it).  11a:
+    ``repro_torch.analysis.audit`` on the card (21 grid points through the
+    engine's graphs, the op audit of every stage the warm-ups reported,
+    coverage, the recapture pass, lint): 0 active findings and 0 stale
+    allowlist entries, each of B1-B7 launched over the grid, the capture
+    count beside the CPU run's, and ``--inject-hazard`` exiting non-zero
+    naming const-array and full-scan-dot.  11b: a full-width probe on the
+    stand-in (64 queries, k 10): the 4-bit and 2-bit full scans, the sign
+    and crumb cascades at rescore_mult 32, IVF at nprobe 16, phase 7a's ~1%
+    ``where=``, 4 shards on the card, HNSW at 2,048 rows and ef 64, hybrid;
+    each searched twice (a capture, then a replay) and through its eager
+    stages with the flag off, then again on indexes built under the flag
+    (which also fills every uninitialised allocation): every result byte-
+    identical, and two builds under the flag writing byte-identical files.
 
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -279,6 +296,10 @@ HNSW_FILTER_EF = 128                   # 8c: the reference's filtered-HNSW test'
 # Phase 9: autotune(recall_target, k, n_queries), the reference's defaults.
 TUNE_TARGET, TUNE_K, TUNE_QUERIES = 0.95, 10, 32
 BOOST_TARGET = 0.7     # 9a: a target the stand-in's IVF meets below nprobe = nlist
+# Phase 11: the determinism audit and the full-width probe (child process).
+PHASE11_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+PHASE11_TIMEOUT_S = 480
+PROBE_QUERIES = 64                      # 11b: one batch of the phase-4 queries
 HYBRID_WORDS = ("report", "market", "team", "season", "price", "study", "city", "data",
                 "café", "naïve", "straße", "北京", "東京", "données", "über", "año")
 
@@ -2223,6 +2244,241 @@ def shard_serve_phase(c) -> dict:
     return out
 
 
+def probe_docs(np, n: int, n_queries: int):
+    """11b's hybrid docs (seeded words a row and the row's topic term) and
+    each query's text (the first words of a random row's doc)."""
+    rng = np.random.default_rng(SEED + 13)
+    words = np.array(HYBRID_WORDS)
+    docs = [" ".join([f"term{r % 61}"] + list(words[rng.integers(0, len(words),
+                                                                 rng.integers(2, 7))]))
+            for r in range(n)]
+    texts = [" ".join(docs[r].split()[:3]) for r in rng.integers(0, n, size=n_queries)]
+    return docs, texts
+
+
+def audit_phase(torch, say, counters) -> dict:
+    """11a, in the child: the audit on the card and on the CPU, and the
+    hazard self-test through the CLI's entry point."""
+    import io
+
+    from repro_torch.analysis import audit
+
+    def reset():
+        for counter in counters.values():
+            counter.launches = 0
+
+    out: dict = {}
+    reset()
+    t0 = time.perf_counter()
+    card = audit.run_audit(device="cuda")
+    out["cuda_s"] = time.perf_counter() - t0
+    out["launches"] = {name: counter.launches for name, counter in counters.items()}
+    t0 = time.perf_counter()
+    cpu = audit.run_audit(device="cpu")
+    out["cpu_s"] = time.perf_counter() - t0
+    for name, rep in (("cuda", card), ("cpu", cpu)):
+        out[name] = {k: rep[k] for k in ("ok", "counts", "captures", "grid_points",
+                                         "launches", "rerun_launches", "environment")}
+        out[name]["active"] = [f for f in rep["findings"] if not f["allowlisted"]]
+        out[name]["stale"] = rep["stale_allowlist_entries"]
+    say(f"11a: audit on the card {out['cuda_s']:.1f} s: {card['captures']} captures "
+        f"(CPU run: {cpu['captures']} in {out['cpu_s']:.1f} s), counts {card['counts']} "
+        f"(CPU {cpu['counts']}), {card['grid_points']} grid points")
+    say(f"11a: kernel launches over the grid's searches {card['launches']}, over the "
+        f"audited stage reruns {card['rerun_launches']}")
+    for f in out["cuda"]["active"] + out["cpu"]["active"]:
+        say(f"11a: ACTIVE {f['check']} {f['site']}: {f['detail']}")
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as td, contextlib.redirect_stdout(buf):
+        rc = audit.main(["--device", "cuda", "--inject-hazard", "--quiet",
+                         "--report", str(Path(td) / "hazard.json")])
+    text = buf.getvalue()
+    out["hazard"] = {"rc": rc, "const_array": "const-array" in text,
+                     "full_scan_dot": "full-scan-dot" in text}
+    say(f"11a: --inject-hazard exit {rc}, names const-array "
+        f"{out['hazard']['const_array']}, full-scan-dot {out['hazard']['full_scan_dot']}")
+    return out
+
+
+def probe_phase(torch, np, dev, say, counters) -> dict:
+    """11b, in the child: every path at full width searched twice and
+    through its eager stages with the deterministic flag off, then on
+    indexes built under it; two builds under the flag saved twice."""
+    from repro_torch import MonaVec
+    from repro_torch.core.hybrid import HybridIndex
+    from repro_torch.core.predicate import Eq, Lt
+    from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
+    from repro_torch.launch.mesh import Mesh
+
+    corpus = embedding_corpus(SEED, N, DIM)
+    q = queries_from_corpus(corpus, SEED + 1, 64 * BATCHES)[:PROBE_QUERIES]
+    cols = filter_columns(np, np.random.default_rng(SEED + 7), N)
+    docs, texts = probe_docs(np, N, PROBE_QUERIES)
+    one_pct = Eq("lang", "en") & Lt("date", 80_000)          # phase 7a's ~1%
+
+    makers = {"bf": lambda: MonaVec.build(corpus, meta=cols, coarse="sign"),
+                "crumb": lambda: MonaVec.build(corpus, coarse="crumb"),
+                "b2": lambda: MonaVec.build(corpus, bits=2),
+                "ivf": lambda: MonaVec.build(corpus, index="ivf", nlist=IVF_NLIST,
+                                             train_iters=IVF_TRAIN_ITERS),
+                "hnsw": lambda: MonaVec.build(corpus[:HNSW_SMALL], index="hnsw"),
+                "hybrid": lambda: HybridIndex.build(corpus, docs)}
+
+    def build(keys=tuple(makers)) -> dict:
+        return {key: makers[key]() for key in keys}
+
+    paths = {"full4": ("bf", {}), "sign_32": ("bf", {"rescore_mult": 32}),
+             "crumb_32": ("crumb", {"rescore_mult": 32}), "full2": ("b2", {}),
+             "ivf_16": ("ivf", {"nprobe": 16}), "where_1pct": ("bf", {"where": one_pct}),
+             "shard4": ("bf", {}), "hnsw_64": ("hnsw", {"ef": 64}), "hybrid": ("hybrid", {})}
+
+    def run_paths(idx: dict) -> dict:
+        got = {}
+        for name, (key, kw) in paths.items():
+            index = idx[key]
+            if name == "hybrid":
+                got[name] = [index.search(q, texts, k=10) for _ in range(2)]
+                continue
+            if name == "shard4":
+                index = index.shard(Mesh.repeat(dev, 4))
+            runs = [index.search(q, k=10, **kw) for _ in range(2)]    # capture, replay
+            if name != "shard4":
+                runs.append(search_eager(index, q, **kw))
+            got[name] = runs
+        return got
+
+    def files(idx: dict, td: str, tag: str) -> dict:
+        out = {}
+        for key in ("bf", "ivf"):
+            path = Path(td) / f"{tag}_{key}.mvec"
+            idx[key].save(str(path))
+            out[key] = hashlib.sha256(path.read_bytes()).hexdigest()
+        return out
+
+    out: dict = {}
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        torch.use_deterministic_algorithms(False)
+        idx = build()
+        results = run_paths(idx)
+        hashes = {"off": files(idx, td, "off")}
+        del idx
+        torch.cuda.empty_cache()
+        try:
+            torch.use_deterministic_algorithms(True)
+            fill = torch.utils.deterministic.fill_uninitialized_memory
+            for tag in ("on1", "on2"):      # the second build: the saved files only
+                idx = build() if tag == "on1" else build(("bf", "ivf"))
+                hashes[tag] = files(idx, td, tag)
+                if tag == "on1":
+                    for name, runs in run_paths(idx).items():
+                        results[name] += runs
+                del idx
+                torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {name: counter.launches for name, counter in counters.items()}
+    out["fill_uninitialized_memory"] = bool(fill)
+    out["paths"] = {}
+    for name, runs in results.items():
+        want = results["full4"][0] if name == "shard4" else runs[0]
+        same = [same_result(r, want) for r in runs]
+        out["paths"][name] = same
+        say(f"11b {name}: {len(runs)} results (flag off: 2 searches"
+            f"{' + eager' if name not in ('shard4', 'hybrid') else ''}, then on), "
+            f"byte-identical {same}")
+    out["files"] = hashes
+    say(f"11b: files (sha256) off {hashes['off']}, on {hashes['on1']}, again {hashes['on2']}; "
+        f"fill_uninitialized_memory {bool(fill)}; {out['seconds']:.1f} s")
+    return out
+
+
+def determinism_child(report_path: str) -> int:
+    """Phase 11's child: 11a and 11b on the card, the report written to
+    ``report_path``; non-zero when the card is missing or a phase raised."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 11: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from repro_torch.kernels import binary_dot, gather_dot, hadamard, nibble_dot
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    counters = {"fwht": hadamard.fwht_cuda, "nibble_dot": nibble_dot.nibble_dot_cuda,
+                "sign_hamming": binary_dot.sign_hamming_cuda,
+                "crumb_affinity": binary_dot.crumb_affinity_cuda,
+                "gather_nibble_dot": gather_dot.gather_nibble_dot_cuda,
+                "crumb_dot": nibble_dot.crumb_dot_cuda,
+                "gather_crumb_dot": gather_dot.gather_crumb_dot_cuda}
+    report = {"env": {k: os.environ.get(k) for k in PHASE11_ENV}}
+    t0 = time.perf_counter()
+    report["audit"] = audit_phase(torch, say, counters)
+    report["audit"]["seconds"] = time.perf_counter() - t0
+    say(f"phase 11a: {report['audit']['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    report["probe"] = probe_phase(torch, np, dev, say, counters)
+    say(f"phase 11b: {time.perf_counter() - t0:.1f} s")
+    Path(report_path).write_text(json.dumps(report))
+    return 0
+
+
+def determinism_phase(c) -> dict:
+    """Phase 11: run ``determinism_child`` in a child process with
+    ``PHASE11_ENV`` added, relay its output and check its report."""
+    expect = c.expect
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "phase11.json"
+        env = dict(os.environ, **PHASE11_ENV)
+        try:
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                   "--phase11-child", str(path)], capture_output=True,
+                                  text=True, env=env, cwd=str(ROOT),
+                                  timeout=PHASE11_TIMEOUT_S)
+        except subprocess.TimeoutExpired as exc:
+            expect(False, f"phase 11: the child ran past {PHASE11_TIMEOUT_S} s")
+            say(exc.stdout or "")
+            return {"launches": {}}
+        for line in proc.stdout.splitlines():
+            say(f"  {line}")
+        expect(proc.returncode == 0,
+               f"phase 11: the child exited {proc.returncode}: {proc.stderr[-4000:]}")
+        if proc.returncode:
+            return {"launches": {}}
+        report = json.loads(path.read_text())
+    return check_determinism(report, expect)
+
+
+def check_determinism(report: dict, expect) -> dict:
+    """Phase 11's checks on the child's report; adds its launches by part."""
+    a, p = report["audit"], report["probe"]
+    expect(report["env"] == PHASE11_ENV, f"11: the child's environment {report['env']}")
+    for dev_name in ("cuda", "cpu"):
+        r = a[dev_name]
+        expect(r["ok"] and r["counts"]["active"] == 0 and not r["stale"],
+               f"11a: the {dev_name} audit: {r['counts']}, stale {r['stale']}")
+    expect(all(n > 0 for n in a["cuda"]["launches"].values()),
+           f"11a: a kernel was never launched over the grid: {a['cuda']['launches']}")
+    expect(a["hazard"]["rc"] != 0 and a["hazard"]["const_array"]
+           and a["hazard"]["full_scan_dot"],
+           f"11a: --inject-hazard did not fail naming both hazards: {a['hazard']}")
+    for name, same in p["paths"].items():
+        expect(all(same), f"11b {name}: a result differs {same}")
+    files = p["files"]
+    expect(files["on1"] == files["on2"],
+           f"11b: two builds under the flag wrote different files {files}")
+    expect(files["off"] == files["on1"],
+           f"11b: a build under the flag wrote another file than one without {files}")
+    report["launches"] = {"11a": a["launches"], "11b": p["launches"]}
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
@@ -2231,8 +2487,11 @@ def main() -> int:
                          "hadamard.cu and binary_dot.cu: build them, hold the full scans, the "
                          "butterfly and the proxies byte for byte against them and time the "
                          "kernels in turns with these")
+    ap.add_argument("--phase11-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     faulthandler.enable()     # a crash in native code names its Python line
+    if args.phase11_child:
+        return determinism_child(args.phase11_child)
 
     import torch
 
@@ -3705,6 +3964,13 @@ def main() -> int:
         reset_counts=reset_counts, read_counts=read_counts, smi=smi))
     say(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 11. the determinism audit and the full-width probe ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    report["determinism"] = determinism_phase(SimpleNamespace(expect=expect))
+    say(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/nibble_dot.cu",
@@ -3755,6 +4021,12 @@ def main() -> int:
     for entry in kernels:
         entry["launches_phase10"] = {path: counts[entry["name"]] for path, counts in
                                      report["shard_serve"]["launches"].items()}
+    # Phase 11's runs, in its child process: the audit grid on the card (11a,
+    # its searches, stage reruns, recapture pass and hazard self-test) and
+    # the full-width probe (11b, flag off and on, builds included).
+    for entry in kernels:
+        entry["launches_phase11"] = {part: counts.get(entry["name"], 0) for part, counts in
+                                     report["determinism"]["launches"].items()}
     report["kernels"] = kernels
     report["precision_launches"] = precision_launches
     report["failures"] = FAILURES

@@ -41,6 +41,9 @@ from ..kernels import ops
 from . import lloydmax
 from . import quantize as qz
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("coarse_scan_stage", "survivor_topk_stage", "gathered_rescore_stage")
+
 SIGN = "sign"
 CRUMB = "crumb"
 COARSE_KINDS = (SIGN, CRUMB)

@@ -20,6 +20,9 @@ from ..kernels import ops
 from . import quantize as qz
 from .allowlist import Allowlist
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("scan_stage",)
+
 
 def scan_stage(q_rot: torch.Tensor, packed: torch.Tensor, *, bits: int,
                n4_dims: int = 0) -> torch.Tensor:

@@ -47,6 +47,9 @@ from .standardize import COSINE, L2, prepare
 
 _NEG = float(NEG)
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("search_stage",)
+
 
 def recommended_m(n: int) -> int:
     """Auto-M policy (paper contribution #4): graph diameter grows with N."""
@@ -202,26 +205,28 @@ class HnswIndex:
     @staticmethod
     def build(vectors: torch.Tensor, *, ids: Optional[np.ndarray] = None,
               metric: str = COSINE, seed: int = 0x6D6F6E61, bits: int = 4, std=None,
-              m: Optional[int] = None, ef_construction: int = 100) -> "HnswIndex":
+              m: Optional[int] = None, ef_construction: int = 100,
+              clock: Callable[[], float] = time.perf_counter) -> "HnswIndex":
         """Rotate and encode ``vectors`` on their device, then build the
-        graph of the rotated rows on the host (``build_graph``)."""
+        graph of the rotated rows on the host (``build_graph``).  ``clock``
+        times the three steps into ``build_seconds``."""
         n = int(vectors.shape[0])
         if m is None:
             m = recommended_m(n)
-        t0 = time.perf_counter()
+        t0 = clock()
         rot = rhdh_apply(prepare(vectors.to(torch.float32), metric, std), seed,
                          normalized=False)
         rot_host = rot.cpu().numpy()
-        t1 = time.perf_counter()
+        t1 = clock()
         enc = qz.encode_rotated(rot, dim=int(vectors.shape[1]), metric=metric, seed=seed,
                                 bits=bits, std=std)
         if rot.is_cuda:
             torch.cuda.synchronize(rot.device)
-        t2 = time.perf_counter()
+        t2 = clock()
         del rot
         nbr0, nbr_hi, levels, entry, max_level = build_graph(
             rot_host, metric=metric, m=m, ef_construction=ef_construction, seed=seed)
-        t3 = time.perf_counter()
+        t3 = clock()
         if ids is None:
             ids = np.arange(n, dtype=np.uint64)
         index = HnswIndex(enc=enc, ids=np.asarray(ids, dtype=np.uint64), neighbors0=nbr0,

@@ -42,6 +42,9 @@ from .standardize import COSINE, L2, prepare
 
 _NEG = float(NEG)
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("search_stage",)
+
 
 @contextlib.contextmanager
 def _f32_products():

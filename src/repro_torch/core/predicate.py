@@ -35,6 +35,9 @@ import torch
 
 from .metadata import KIND_STR, MetaStore, NO_MATCH_KEY, encode_constant, signed_key
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("build_stage_fn",)
+
 
 class Predicate:
     """Base: composable with ``&``, ``|``, ``~``."""
@@ -272,5 +275,5 @@ def flatten_args(p: Predicate, store: MetaStore) -> Tuple[np.ndarray, ...]:
 __all__ = [
     "Predicate", "Eq", "Ne", "Lt", "Le", "Gt", "Ge", "In", "And", "Or", "Not",
     "validate", "structure", "evaluate", "build_stage_fn", "constant_keys",
-    "flatten_args", "leaf_columns", "NO_MATCH_KEY",
+    "flatten_args", "leaf_columns", "NO_MATCH_KEY", "PLAN_STAGES",
 ]

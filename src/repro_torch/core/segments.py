@@ -38,6 +38,9 @@ from .standardize import L2
 #: "No result" external id, the sentinel of every search path.
 SENTINEL_ID = np.uint64(0xFFFFFFFFFFFFFFFF)
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("merge_stage",)
+
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _GOLDEN = 0x9E3779B97F4A7C15
 

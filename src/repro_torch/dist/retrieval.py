@@ -42,6 +42,9 @@ from .partition import shard_rows, shard_sizes
 
 _INF = float("inf")
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("make_scan_topk_shardmap", "make_cascade_topk_shardmap")
+
 
 # ---------------------------------------------------------------------------
 # Single-logical-array references.

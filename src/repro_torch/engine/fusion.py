@@ -30,6 +30,10 @@ from ..core.segments import SENTINEL_ID
 from .plan import search_backend
 
 
+#: The stage factories the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("search_hybrid",)
+
+
 def _sparse_mask(index, allow: Optional[Allowlist],
                  where: Optional[pred.Predicate]) -> Optional[np.ndarray]:
     """The combined allowlist and predicate row mask for the BM25 channel,

@@ -71,13 +71,22 @@ A ``ShardedMonaVec`` search (``search_sharded``) is a ``ShardedPlan``: the
 rotation, each shard's local scan or cascade and stable top-k, and the
 stable cross-shard merge (``dist.retrieval``).  Its graphs live with the
 sharded index: one graph when every shard is on one device, else one per
-device and the merge's on the first.  The stage observer is ROADMAP A15.
+device and the merge's on the first.
+
+Every stage of a plan (rotate, predicate_mask, scan, coarse_scan,
+survivor_topk, gathered_rescore, finalize, merge, main; shard_scan or
+cascade_shard_scan on a sharded plan) reports to the stage observer
+(``set_stage_observer``, driven by ``repro_torch.analysis``) whenever its
+Python runs eagerly: every CPU search, the warm-up on the card and
+``run_eager``.  Never while a stream captures: an observer inside a capture
+would run once and never on a replay.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import hashlib
 import logging
 from typing import Any, Callable, Container, Dict, Optional, Sequence, Tuple
@@ -102,12 +111,43 @@ _LOG = logging.getLogger("repro_torch.engine.plan")
 _NEG = float(NEG)
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+# Stage-capture hook (repro_torch.analysis): when installed, every plan
+# stage run eagerly reports (backend kind, stage name, stage function, its
+# operands) before it runs, so the determinism audit reruns exactly the
+# functions and operands the engine runs.  One ``is not None`` check a stage
+# call when none is installed.
+_STAGE_OBSERVER: Optional[Callable[[str, str, Callable, tuple], None]] = None
 
 
-def set_stage_observer(observer):
-    raise _unported("the stage observer", "A15")
+def set_stage_observer(
+    observer: Optional[Callable[[str, str, Callable, tuple], None]],
+) -> Optional[Callable[[str, str, Callable, tuple], None]]:
+    """Install (or clear, with None) the stage-capture hook; returns the
+    previous observer so callers can restore it.  Plans built while an
+    observer is installed report through the module-level slot, so clearing
+    the hook also silences plans already cached."""
+    global _STAGE_OBSERVER
+    prev = _STAGE_OBSERVER
+    _STAGE_OBSERVER = observer
+    return prev
+
+
+def observe(kind: str, stage: str, fn: Callable, args: tuple) -> None:
+    """Report one eager run of ``fn(*args)`` to the installed observer; no
+    report while a stream captures (the capture records the stage once and
+    every replay runs it without Python)."""
+    if _STAGE_OBSERVER is not None and not (
+            torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        _STAGE_OBSERVER(kind, stage, fn, args)
+
+
+def observed(kind: str, stage: str, fn: Callable) -> Callable:
+    """``fn`` as a plan stage: its calls report to the stage observer."""
+    def run(*args):
+        if _STAGE_OBSERVER is not None:
+            observe(kind, stage, fn, args)
+        return fn(*args)
+    return run
 
 
 def shape_bucket(b: int) -> int:
@@ -630,7 +670,9 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
     LRU pins no index; the tensors come in as ``arrays`` (``_bind_arrays``:
     the IVF or HNSW head, (packed, qnorms[, ccodes]) per segment, the base's
     permutation index or None, then one metadata key plane per predicate
-    leaf) and the predicate's constant keys as ``consts``.
+    leaf) and the predicate's constant keys as ``consts``.  Each stage is a
+    function of its tensors alone (``observed``), under the reference's
+    stage names.
     """
     enc0 = backend.enc
     metric, bits, n4, std = enc0.metric, enc0.bits, enc0.n4_dims, enc0.std
@@ -638,14 +680,17 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
     seg_ns = (enc0.n,) + tuple(s.enc.n for s in extras)
     offsets = [0] + np.cumsum(seg_ns).tolist()
     n_total, n_segs, k = offsets[-1], len(seeds), key.k
+    base_n = seg_ns[0]
+    kind = type(backend).__name__
     is_ivf = isinstance(backend, ivf_mod.IvfFlatIndex)
     cascade = "rescore_mult" in knobs
     is_hnsw = isinstance(backend, hnsw_mod.HnswIndex)
     n_head = len(_head(backend))
     at_perm = n_head + (3 if cascade else 2) * n_segs
-    where_fn = None if where is None else pred.build_stage_fn(where)
+    where_fn = (None if where is None
+                else observed(kind, "predicate_mask", pred.build_stage_fn(where)))
 
-    def rotate(q: torch.Tensor, perm: Optional[torch.Tensor]) -> list:
+    def rotate_all(q: torch.Tensor, perm: Optional[torch.Tensor]) -> list:
         """The query prepared once and rotated under each segment's seed
         (``quantize.encode_query``'s ops, so each equals its bytes)."""
         prepared = prepare(q, metric, std)
@@ -654,6 +699,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
             rot = rhdh_apply(prepared, seed, normalized=False)
             rots.append(rot if perm is None else rot[..., perm])
         return rots
+    rotate = observed(kind, "rotate", rotate_all)
 
     def masked_live(live: torch.Tensor, arrays: tuple, consts: tuple) -> torch.Tensor:
         """The live mask AND the predicate's mask (boolean algebra only)."""
@@ -666,22 +712,57 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
         vals = torch.where(q_valid[:, None], vals, _NEG)
         return vals, torch.where(vals > _NEG, pos, -1)
 
-    def merge_extras(vals, pos, live, rots, arrays):
-        """The extra segments' full scans, masked and merged into the base
-        segment's candidate-set top-k (IVF, HNSW)."""
-        if n_segs == 1:
-            return vals, pos
-        side = torch.cat([adjust_scores(
-            bf_mod.scan_stage(rots[i], arrays[n_head + 2 * i], bits=bits, n4_dims=n4),
-            arrays[n_head + 1 + 2 * i], metric) for i in range(1, n_segs)], dim=1)
-        side.masked_fill_(~live[None, seg_ns[0]:], _NEG)
-        return seg.merge_stage(vals, pos, side, seg_ns[0], k)
+    def scan_segment(q_rot, packed, qnorms):
+        """One segment's metric-adjusted full scan [b, n_i]."""
+        return adjust_scores(bf_mod.scan_stage(q_rot, packed, bits=bits, n4_dims=n4),
+                             qnorms, metric)
+    scan = observed(kind, "scan", scan_segment)
+
+    def merge_extras(q_valid, live, vals, pos, *side_cols):
+        """The extra segments' scans, masked and merged into the base
+        segment's candidate-set top-k (IVF, HNSW), then the -1 marking."""
+        if side_cols:
+            side = torch.cat(side_cols, dim=1)
+            side.masked_fill_(~live[None, base_n:], _NEG)
+            vals, pos = seg.merge_stage(vals, pos, side, base_n, k)
+        return finish(q_valid, vals, pos)
+    merge = observed(kind, "merge", merge_extras)
+
+    def side_scans(rots, arrays) -> list:
+        return [scan(rots[i], arrays[n_head + 2 * i], arrays[n_head + 1 + 2 * i])
+                for i in range(1, n_segs)]
 
     if cascade:
-        kind = enc0.coarse
+        coarse_kind = enc0.coarse
         m = knobs["rescore_mult"] * k
         seg_ms = [min(m, n) for n in seg_ns]
         m_total = sum(seg_ms)
+
+        def coarse_scan(q_rot, ccodes):
+            return bin_mod.coarse_scan_stage(q_rot, ccodes, kind=coarse_kind)
+        coarse = observed(kind, "coarse_scan", coarse_scan)
+
+        def make_survivors(m_i: int) -> Callable:
+            def survivor_topk(proxy, live_s):
+                return bin_mod.survivor_topk_stage(proxy, live_s, m=m_i)
+            return observed(kind, "survivor_topk", survivor_topk)
+        survivors = [make_survivors(m_i) for m_i in seg_ms]
+
+        def gathered_rescore(q_rot, packed, qnorms, cand):
+            return bin_mod.gathered_rescore_stage(q_rot, packed, qnorms, cand, bits=bits,
+                                                  metric=metric, n4_dims=n4)
+        rescore = observed(kind, "gathered_rescore", gathered_rescore)
+
+        def select(q_valid, *cols):
+            """The survivors' scores and rows (n_segs columns each), top-k."""
+            scores = cols[0] if n_segs == 1 else torch.cat(cols[:n_segs], dim=1)
+            gpos = cols[n_segs] if n_segs == 1 else torch.cat(cols[n_segs:], dim=1)
+            if m_total < k:    # k above the budget: pad to the [b, k] contract
+                scores = torch.nn.functional.pad(scores, (0, k - m_total), value=_NEG)
+                gpos = torch.nn.functional.pad(gpos, (0, k - m_total), value=-1)
+            vals, sel = topk(scores, k)
+            return finish(q_valid, vals, torch.gather(gpos, 1, sel).long())
+        finalize = observed(kind, "finalize", select)
 
         def fn(q, q_valid, live, arrays, consts):
             live = masked_live(live, arrays, consts)
@@ -689,43 +770,44 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
             for i, q_rot in enumerate(rotate(q, arrays[at_perm])):
                 packed, qnorms, ccodes = arrays[3 * i: 3 * i + 3]
                 off = offsets[i]
-                proxy = bin_mod.coarse_scan_stage(q_rot, ccodes, kind=kind)
-                cand = bin_mod.survivor_topk_stage(proxy, live[off: off + seg_ns[i]],
-                                                   m=seg_ms[i])
-                score_cols.append(bin_mod.gathered_rescore_stage(
-                    q_rot, packed, qnorms, cand, bits=bits, metric=metric, n4_dims=n4))
+                proxy = coarse(q_rot, ccodes)
+                cand = survivors[i](proxy, live[off: off + seg_ns[i]])
+                score_cols.append(rescore(q_rot, packed, qnorms, cand))
                 pos_cols.append(cand if off == 0 else torch.where(cand >= 0, cand + off, -1))
-            scores = score_cols[0] if n_segs == 1 else torch.cat(score_cols, dim=1)
-            gpos = pos_cols[0] if n_segs == 1 else torch.cat(pos_cols, dim=1)
-            if m_total < k:    # k above the budget: pad to the [b, k] contract
-                scores = torch.nn.functional.pad(scores, (0, k - m_total), value=_NEG)
-                gpos = torch.nn.functional.pad(gpos, (0, k - m_total), value=-1)
-            vals, sel = topk(scores, k)
-            return finish(q_valid, vals, torch.gather(gpos, 1, sel).long())
+            return finalize(q_valid, *score_cols, *pos_cols)
     elif is_ivf:
         nprobe = knobs["nprobe"]
         max_cand = backend.max_candidates(nprobe)
-        base_n = seg_ns[0]
+
+        def ivf_main(q_rot, centroids, order, offs, packed, qnorms, live0):
+            return ivf_mod.search_stage(q_rot, centroids, order, offs, packed, qnorms, live0,
+                                        k=k, nprobe=nprobe, max_cand=max_cand, metric=metric,
+                                        bits=bits, n4_dims=n4)
+        main = observed(kind, "main", ivf_main)
 
         def fn(q, q_valid, live, arrays, consts):
             live = masked_live(live, arrays, consts)
-            centroids, order, offs = arrays[:n_head]
             rots = rotate(q, arrays[at_perm])
-            vals, pos = ivf_mod.search_stage(
-                rots[0], centroids, order, offs, arrays[n_head], arrays[n_head + 1],
-                live[:base_n], k=k,
-                nprobe=nprobe, max_cand=max_cand, metric=metric, bits=bits, n4_dims=n4)
-            return finish(q_valid, *merge_extras(vals, pos, live, rots, arrays))
+            vals, pos = main(rots[0], *arrays[:n_head], arrays[n_head], arrays[n_head + 1],
+                             live[:base_n])
+            return merge(q_valid, live, vals, pos, *side_scans(rots, arrays))
     elif is_hnsw:
-        base_n = seg_ns[0]
         h_start, h_middle, h_finish = hnsw_mod.search_program(
             entry=backend.entry_point, ef=knobs["ef"], k=k, metric=metric, bits=bits,
             n4_dims=n4, max_level=backend.max_level)
+        # The program's parts report as stage "main": its start, each loop's
+        # step and the stages between them, its finish.  A loop's host check
+        # (``Loop.more`` read back) drives the program and is no stage.
+        o_start, o_finish = observed(kind, "main", h_start), observed(kind, "main", h_finish)
+        o_middle = tuple(
+            dataclasses.replace(item, step=observed(kind, "main", item.step))
+            if isinstance(item, hnsw_mod.Loop) else observed(kind, "main", item)
+            for item in h_middle)
 
         def start(q, q_valid, live, arrays, consts):
             live = masked_live(live, arrays, consts)
             ctx = (q_valid, live, *rotate(q, arrays[at_perm]))
-            return ctx, h_start(env(ctx, arrays))
+            return ctx, o_start(env(ctx, arrays))
 
         def env(ctx, arrays):
             """hnsw's stage environment: the base segment's rotated queries,
@@ -734,23 +816,27 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
                     ctx[1][:base_n], ctx[0])
 
         def end(ctx, st, arrays):
-            vals, pos = h_finish(env(ctx, arrays), st)
-            return finish(ctx[0], *merge_extras(vals, pos, ctx[1], ctx[2:], arrays))
+            vals, pos = o_finish(env(ctx, arrays), st)
+            return merge(ctx[0], ctx[1], vals, pos, *side_scans(ctx[2:], arrays))
 
-        program = Program(start=start, env=env, middle=h_middle, finish=end)
+        program = Program(start=start, env=env, middle=o_middle, finish=end)
         return SearchPlan(key=key, fn=program.run, dim=enc0.dim, n_total=n_total,
                           program=program)
     else:
-        def fn(q, q_valid, live, arrays, consts):
-            live = masked_live(live, arrays, consts)
-            cols = [adjust_scores(bf_mod.scan_stage(q_rot, arrays[2 * i], bits=bits,
-                                                    n4_dims=n4), arrays[2 * i + 1], metric)
-                    for i, q_rot in enumerate(rotate(q, arrays[at_perm]))]
+        def select_all(q_valid, live, *cols):
+            """The segments' scores, dead rows NEG, top-k."""
             scores = cols[0] if n_segs == 1 else torch.cat(cols, dim=1)
             scores.masked_fill_(~live[None, :], _NEG)    # in place: no second [b, n]
             if n_total < k:    # k > n: pad to the [b, k] contract
                 scores = torch.nn.functional.pad(scores, (0, k - n_total), value=_NEG)
             return finish(q_valid, *topk(scores, k))
+        finalize = observed(kind, "finalize", select_all)
+
+        def fn(q, q_valid, live, arrays, consts):
+            live = masked_live(live, arrays, consts)
+            cols = [scan(q_rot, arrays[2 * i], arrays[2 * i + 1])
+                    for i, q_rot in enumerate(rotate(q, arrays[at_perm]))]
+            return finalize(q_valid, live, *cols)
 
     return SearchPlan(key=key, fn=fn, dim=enc0.dim, n_total=n_total)
 
@@ -942,16 +1028,29 @@ class ShardedPlan(SearchPlan):
 
     def __post_init__(self) -> None:
         self.fn = self._run
+        self.stage = "shard_scan" if self.scan.kind is None else "cascade_shard_scan"
 
     def local(self, group: int, q: torch.Tensor, masks: dict, arrays: tuple) -> list:
         """(scores, global ids) of each shard of ``groups[group]``, in order:
         the queries rotated on the group's device, then each shard's stage
-        (``masks[s]`` its admissible rows, or None)."""
+        (``masks[s]`` its admissible rows, or None), reported to the stage
+        observer as ``scan.local(s, n_valid, q_rot, packed, qnorms, ccodes,
+        mask)``."""
         _, shards = self.groups[group]
         q_rot = self.rotate(q, arrays[len(arrays) - len(self.groups) + group])
         w = self.width
-        return [self.scan.local(s, self.scan.n_valid, q_rot, *arrays[w * s: w * (s + 1)],
-                                mask=masks[s]) for s in shards]
+        out = []
+        for s in shards:
+            args = (q_rot, *arrays[w * s: w * (s + 1)]) + (None,) * (3 - w) + (masks[s],)
+            stage = functools.partial(self.scan.local, s, self.scan.n_valid)
+            observe("ShardedMonaVec", self.stage, stage, args)
+            out.append(stage(*args))
+        return out
+
+    def merge(self, vals: list, gids: list):
+        """The stable cross-shard merge of the shards' candidates, a stage."""
+        observe("ShardedMonaVec", self.stage, self.scan.merge, (vals, gids))
+        return self.scan.merge(vals, gids)
 
     def _masks(self, live: torch.Tensor, shards) -> dict:
         per = self.per
@@ -964,7 +1063,7 @@ class ShardedPlan(SearchPlan):
             got = self.local(g, q.to(dev), self._masks(live.to(dev), shards), arrays)
             outs.update(zip(shards, got))
         order = sorted(outs)
-        return self.scan.merge([outs[s][0] for s in order], [outs[s][1] for s in order])
+        return self.merge([outs[s][0] for s in order], [outs[s][1] for s in order])
 
     def capture(self, call: "_Call", stats: PlanStats):
         if len(self.groups) == 1:
@@ -1010,7 +1109,7 @@ class _MeshGraph:
         self.cand = [cand[s] for s in sorted(cand)]
 
         def merge():
-            return plan.scan.merge([c[0] for c in self.cand], [c[1] for c in self.cand])
+            return plan.merge([c[0] for c in self.cand], [c[1] for c in self.cand])
 
         _warm_up(self.dev0, merge)
         self.merge = _Captured(merge, self.dev0)

@@ -26,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
@@ -55,13 +55,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, dict]:
+def build(names: Iterable[str], *,
+          clock: Callable[[], float] = time.perf_counter) -> Dict[str, dict]:
     """Compile every named source that has no library yet, all at once.
 
-    Returns {name: {"seconds": wall time, "log": nvcc's output (ptxas
-    register and shared-memory report)}}; a source whose library exists
-    reports 0 seconds and an empty log.  Raises RuntimeError if nvcc is
-    missing or a compile fails.
+    Returns {name: {"seconds": wall time by ``clock``, "log": nvcc's output
+    (ptxas register and shared-memory report)}}; a source whose library
+    exists reports 0 seconds and an empty log.  Raises RuntimeError if nvcc
+    is missing or a compile fails.
     """
     names = list(names)
     todo = [n for n in names if not library_path(n).exists()]
@@ -75,7 +76,7 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
             "PATH): the CUDA kernels are built from csrc/ at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    t0 = time.perf_counter()
+    t0 = clock()
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -86,7 +87,7 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        report[name] = {"seconds": clock() - t0, "log": log}
         if proc.returncode:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
         else:

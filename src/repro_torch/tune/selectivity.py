@@ -37,6 +37,11 @@ from ..core import predicate as pred_mod
 from ..core.metadata import MetaStore, encode_constant
 from ..device import resolve_device
 
+#: The stage factory the determinism audit must witness (analysis/grid.py).
+PLAN_STAGES = ("make_popcount_fn",)
+#: The stage name the count reports under to the engine's stage observer.
+_STAGE_NAME = "selectivity_popcount"
+
 #: structure -> stage function ``fn(live, *args) -> [] int64 count``
 _FN_CACHE: Dict[tuple, Callable] = {}
 
@@ -103,6 +108,8 @@ def estimate_matches(p: "pred_mod.Predicate", store: MetaStore,
     args = []
     for col, const in zip(pred_mod.leaf_columns(p), pred_mod.constant_keys(p, store)):
         args += [store[col].on(dev), torch.from_numpy(np.array(const)).to(dev)]
+    from ..engine import plan as plan_mod
+    plan_mod.observe("SelectivityEstimator", _STAGE_NAME, fn, (live_t, *args))
     count = int(fn(live_t, *args).item())
     _COUNT_CACHE[key] = count
     while len(_COUNT_CACHE) > _COUNT_CACHE_MAX:
@@ -116,4 +123,4 @@ def clear_caches() -> None:
     _COUNT_CACHE.clear()
 
 
-__all__ = ["clear_caches", "estimate_matches", "make_popcount_fn"]
+__all__ = ["PLAN_STAGES", "clear_caches", "estimate_matches", "make_popcount_fn"]

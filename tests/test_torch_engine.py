@@ -389,7 +389,9 @@ def test_counters_carry_the_reference_names():
 @pytest.mark.parametrize("what,item", [("where", "A6"), ("tuned", "A11"),
                                        ("sharded", "A12"), ("observer", "A15")])
 def test_unported_engine_paths_name_their_item(what, item):
-    """The stage observer raises naming its ROADMAP item.  ``where=`` (A6)
+    """The stage observer (A15) is ported: installing one returns the
+    previous observer, a search reports its stages under the reference's
+    names, and clearing it silences the cached plan.  ``where=`` (A6)
     is ported: on an index with metadata it equals the search with the
     predicate's allowlist, through ``search`` and through a bound
     ``searcher``; an index without metadata refuses it.  Tuned knobs (A11)
@@ -430,8 +432,18 @@ def test_unported_engine_paths_name_their_item(what, item):
             assert got[0].tobytes() == want[0].tobytes()
             assert got[1].tobytes() == want[1].tobytes()
     else:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            engine.set_stage_observer(None)
+        seen = []
+        prev = engine.set_stage_observer(lambda kind, stage, fn, args: seen.append(
+            (kind, stage, fn(*args) is not None)))
+        try:
+            want = idx.search(q, 3)
+            assert sorted(set(seen)) == [("BruteForceIndex", s, True)
+                                         for s in ("finalize", "rotate", "scan")]
+        finally:
+            assert engine.set_stage_observer(prev) is not None
+        seen.clear()
+        got = idx.search(q, 3)
+        assert seen == [] and got[1].tobytes() == want[1].tobytes()
     with pytest.raises(ValueError, match="where= requires an index built with metadata"):
         idx.searcher(k=3, where=object())(q)
 

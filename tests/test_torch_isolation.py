@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX and nothing of ``repro`` in the
-package or in ``chip_smoke.py``; it imports with JAX blocked; its entry
+package or in ``chip_smoke.py``; it imports with JAX blocked (the
+determinism audit ``repro_torch.analysis`` included); its entry
 points run on the card unless the CPU is asked for; its CUDA wrappers import
 without nvcc and build nothing until called.
 """
@@ -65,6 +66,10 @@ def test_port_imports_and_runs_with_jax_blocked():
         "reg.put('t', 'c', idx)\n"
         "t = batcher.MicroBatcher(reg).submit('t', 'c', x[1:2], k=3)\n"
         "assert t.result()[1][0, 0] == 1 and obs.registry().snapshot()['counters']\n"
+        "from repro_torch import analysis\n"
+        "from repro_torch.analysis import audit, grid, lint, op_audit\n"
+        "assert analysis.audit_captures([analysis.StageCapture('U', 's', lambda t: t + 1,\n"
+        "                                                       (idx.backend.enc.qnorms,))]) == []\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "f = repro_torch.MonaVec.build(x, index='ivf', nlist=4, meta={'g': np.arange(64) % 2},\n"
