@@ -215,6 +215,24 @@ Phases, in order (any failure exits non-zero and prints no result line):
     stages with the flag off, then again on indexes built under the flag
     (which also fills every uninitialised allocation): every result byte-
     identical, and two builds under the flag writing byte-identical files.
+12. the model zoo's serving forwards, after phase 11, in a child process
+    with phase 11's environment; every model's weights seeded on the card.
+    12a: llama3.2-3b at full width: prefill 4 x 512 then 32 decode steps
+    against the forward of the 544 tokens, in bf16 (within twice the bf16
+    forward's own distance from the f32 forward) and on an f32 copy of the
+    weights (the reference's test tolerance), each run twice byte for byte;
+    then batch 8 at max_len 1,024 for 64 steps from empty in the bf16 and
+    the 4-bit cache: B2 4 launches a layer a step, one step's B2 outputs in
+    ``_rotate`` / ``_unrotate`` byte-equal to the butterfly, that step's
+    codes against the CPU plain path's, two runs byte-identical, argmax
+    agreement and max logit diff, tokens/s, cache bytes, one traced step
+    each.  12b: the two-tower cell at full width: 1,000,000 items embedded
+    and encoded (B2), 1 and 64 users retrieved (B2, B1), ids against the CPU
+    plain path over the same codes (99%), the exact f32 top-10's overlap,
+    latency by CUDA events.  12c: every other arch at its smoke config on
+    the card against the CPU plain forward (LMs: forward, decode over both
+    caches; GIN full and sampled; the recsys forwards), and qwen1.5-0.5b,
+    gemma2-2b and olmoe-1b-7b at full width as 12a's first part.
 
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -300,6 +318,23 @@ BOOST_TARGET = 0.7     # 9a: a target the stand-in's IVF meets below nprobe = nl
 PHASE11_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 PHASE11_TIMEOUT_S = 480
 PROBE_QUERIES = 64                      # 11b: one batch of the phase-4 queries
+# Phase 12: the model zoo's serving forwards (child process, same environment
+# as phase 11's so cuBLAS is reproducible run to run).
+PHASE12_ENV = PHASE11_ENV
+PHASE12_TIMEOUT_S = 600
+# Decode against the forward of the same tokens: in f32, the reference's own
+# test tolerance (tests/test_models_smoke.py: rtol 2e-2, atol 2e-4).  In bf16,
+# the forward's, the prefill's and the decode's max |logit diff| from the f32
+# forward of an f32 copy of the same weights, each within a fixed limit, about
+# twice the distances measured on an H100 (PERF.md): ZOO_BF16_LIMIT (llama /
+# qwen / gemma forwards 0.0747 / 0.0715 / 0.0874).  An MoE model's own routing
+# differs from the f32 model's for a few tokens (a bf16 near-tie moves the
+# top-k), so its own distances get ZOO_BF16_MOE_LIMIT (olmoe 0.2315), and its
+# forward with the f32 forward's routing replayed is held to ZOO_BF16_LIMIT.
+ZOO_F32_RTOL, ZOO_F32_ATOL = 2e-2, 2e-4
+ZOO_BF16_LIMIT, ZOO_BF16_MOE_LIMIT = 0.15, 0.4
+ZOO_SMOKE_TOL = 1e-4     # f32 smoke: card vs CPU plain forward, rtol = atol
+ZOO_SMOKE_Q_TOL = 2e-2   # f32 smoke through the 4-bit cache (butterfly vs Kronecker codes)
 HYBRID_WORDS = ("report", "market", "team", "season", "price", "study", "city", "data",
                 "café", "naïve", "straße", "北京", "東京", "données", "über", "año")
 
@@ -382,7 +417,7 @@ def profile_window(torch, fn, label: str, top: int = 10) -> dict:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    out = {"wall_us": wall_us, "device_busy_us": busy_us,
+    out = {"wall_us": wall_us, "device_busy_us": busy_us, "kernels": len(acts),
            "idle_share": max(0.0, 1.0 - busy_us / wall_us),
            "ops": [{"name": k, "device_us": t, "count": c} for k, (t, c) in ops]}
     say(f"profile {label}: wall {wall_us:.1f} us (traced), device busy {busy_us:.1f} us, "
@@ -2244,6 +2279,37 @@ def shard_serve_phase(c) -> dict:
     return out
 
 
+def kernel_counters() -> dict:
+    """B1-B7's launch counters by the names of the kernels line."""
+    from repro_torch.kernels import binary_dot, gather_dot, hadamard, nibble_dot
+
+    return {"fwht": hadamard.fwht_cuda, "nibble_dot": nibble_dot.nibble_dot_cuda,
+            "sign_hamming": binary_dot.sign_hamming_cuda,
+            "crumb_affinity": binary_dot.crumb_affinity_cuda,
+            "gather_nibble_dot": gather_dot.gather_nibble_dot_cuda,
+            "crumb_dot": nibble_dot.crumb_dot_cuda,
+            "gather_crumb_dot": gather_dot.gather_crumb_dot_cuda}
+
+
+def reset_launches(counters: dict) -> None:
+    for counter in counters.values():
+        counter.launches = 0
+
+
+def read_launches(counters: dict) -> dict:
+    return {name: counter.launches for name, counter in counters.items()}
+
+
+@contextlib.contextmanager
+def launches_into(out: dict, part: str, counters: dict):
+    """Set every counter to 0, run the body, store the counts under ``part``."""
+    reset_launches(counters)
+    try:
+        yield
+    finally:
+        out[part] = read_launches(counters)
+
+
 def probe_docs(np, n: int, n_queries: int):
     """11b's hybrid docs (seeded words a row and the row's topic term) and
     each query's text (the first words of a random row's doc)."""
@@ -2263,16 +2329,11 @@ def audit_phase(torch, say, counters) -> dict:
 
     from repro_torch.analysis import audit
 
-    def reset():
-        for counter in counters.values():
-            counter.launches = 0
-
     out: dict = {}
-    reset()
     t0 = time.perf_counter()
-    card = audit.run_audit(device="cuda")
+    with launches_into(out, "launches", counters):
+        card = audit.run_audit(device="cuda")
     out["cuda_s"] = time.perf_counter() - t0
-    out["launches"] = {name: counter.launches for name, counter in counters.items()}
     t0 = time.perf_counter()
     cpu = audit.run_audit(device="cpu")
     out["cpu_s"] = time.perf_counter() - t0
@@ -2356,10 +2417,8 @@ def probe_phase(torch, np, dev, say, counters) -> dict:
         return out
 
     out: dict = {}
-    for counter in counters.values():
-        counter.launches = 0
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as td:
+    with launches_into(out, "launches", counters), tempfile.TemporaryDirectory() as td:
         torch.use_deterministic_algorithms(False)
         idx = build()
         results = run_paths(idx)
@@ -2380,7 +2439,6 @@ def probe_phase(torch, np, dev, say, counters) -> dict:
         finally:
             torch.use_deterministic_algorithms(False)
     out["seconds"] = time.perf_counter() - t0
-    out["launches"] = {name: counter.launches for name, counter in counters.items()}
     out["fill_uninitialized_memory"] = bool(fill)
     out["paths"] = {}
     for name, runs in results.items():
@@ -2406,17 +2464,10 @@ def determinism_child(report_path: str) -> int:
         return 1
     import numpy as np
 
-    from repro_torch.kernels import binary_dot, gather_dot, hadamard, nibble_dot
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    counters = {"fwht": hadamard.fwht_cuda, "nibble_dot": nibble_dot.nibble_dot_cuda,
-                "sign_hamming": binary_dot.sign_hamming_cuda,
-                "crumb_affinity": binary_dot.crumb_affinity_cuda,
-                "gather_nibble_dot": gather_dot.gather_nibble_dot_cuda,
-                "crumb_dot": nibble_dot.crumb_dot_cuda,
-                "gather_crumb_dot": gather_dot.gather_crumb_dot_cuda}
+    counters = kernel_counters()
     report = {"env": {k: os.environ.get(k) for k in PHASE11_ENV}}
     t0 = time.perf_counter()
     report["audit"] = audit_phase(torch, say, counters)
@@ -2429,30 +2480,38 @@ def determinism_child(report_path: str) -> int:
     return 0
 
 
+def run_child(flag: str, env: dict, timeout_s: int, label: str, expect) -> Optional[dict]:
+    """Run this script with ``flag PATH`` in a child process with ``env``
+    added, relay its output, and return the report it wrote to PATH (None if
+    it wrote none).  A child's exit code other than 0 fails ``label`` unless
+    its report lists the failed checks (the caller relays those)."""
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "report.json"
+        try:
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag,
+                                   str(path)], capture_output=True, text=True,
+                                  env=dict(os.environ, **env), cwd=str(ROOT), timeout=timeout_s)
+        except subprocess.TimeoutExpired as exc:
+            expect(False, f"{label}: the child ran past {timeout_s} s")
+            out = exc.stdout or b""
+            say(out.decode(errors="replace") if isinstance(out, bytes) else out)
+            return None
+        for line in proc.stdout.splitlines():
+            say(f"  {line}")
+        report = json.loads(path.read_text()) if path.exists() else None
+    if report is None or not report.get("failures"):
+        expect(proc.returncode == 0,
+               f"{label}: the child exited {proc.returncode}: {proc.stderr[-4000:]}")
+    return report
+
+
 def determinism_phase(c) -> dict:
     """Phase 11: run ``determinism_child`` in a child process with
     ``PHASE11_ENV`` added, relay its output and check its report."""
-    expect = c.expect
-    with tempfile.TemporaryDirectory() as td:
-        path = Path(td) / "phase11.json"
-        env = dict(os.environ, **PHASE11_ENV)
-        try:
-            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                                   "--phase11-child", str(path)], capture_output=True,
-                                  text=True, env=env, cwd=str(ROOT),
-                                  timeout=PHASE11_TIMEOUT_S)
-        except subprocess.TimeoutExpired as exc:
-            expect(False, f"phase 11: the child ran past {PHASE11_TIMEOUT_S} s")
-            say(exc.stdout or "")
-            return {"launches": {}}
-        for line in proc.stdout.splitlines():
-            say(f"  {line}")
-        expect(proc.returncode == 0,
-               f"phase 11: the child exited {proc.returncode}: {proc.stderr[-4000:]}")
-        if proc.returncode:
-            return {"launches": {}}
-        report = json.loads(path.read_text())
-    return check_determinism(report, expect)
+    report = run_child("--phase11-child", PHASE11_ENV, PHASE11_TIMEOUT_S, "phase 11", c.expect)
+    if report is None:
+        return {"launches": {}}
+    return check_determinism(report, c.expect)
 
 
 def check_determinism(report: dict, expect) -> dict:
@@ -2479,6 +2538,540 @@ def check_determinism(report: dict, expect) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the model zoo's serving forwards on the card (child process).
+# ---------------------------------------------------------------------------
+
+def bytes_equal(torch, a, b) -> bool:
+    """Equal shapes, dtypes and bytes (+0.0 and -0.0 differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a = a.view(torch.int16 if a.element_size() == 2 else torch.int32)
+        b = b.view(a.dtype)
+    return bool(torch.equal(a, b))
+
+
+def model_copy(model, device):
+    """The same parameters (and class) on ``device``."""
+    twin = type(model)(model.cfg, device="meta")
+    twin.load_state_dict({k: v.to(device) for k, v in model.state_dict().items()},
+                         strict=True, assign=True)
+    return twin
+
+
+def pad_cache(torch, caches: list, max_len: int) -> list:
+    """Prefill caches ([L, B, S, ...]) grown to ``max_len`` positions (zeros)."""
+    out = []
+    for block in caches:
+        grown = {}
+        for name, t in block.items():
+            g = t.new_zeros(t.shape[:2] + (max_len,) + t.shape[3:])
+            g[:, :, :t.shape[2]] = t
+            grown[name] = g
+        out.append(grown)
+    return out
+
+
+def logit_gap(torch, got, want) -> dict:
+    """Max |diff|, whether within the f32 tolerance, argmax agreement."""
+    diff = (got.float() - want.float()).abs()
+    return {"max_abs": float(diff.max()),
+            "within_f32_tol": bool((diff <= ZOO_F32_ATOL + ZOO_F32_RTOL
+                                    * want.float().abs()).all()),
+            "argmax": float((got.argmax(-1) == want.argmax(-1)).float().mean())}
+
+
+def cache_bytes(caches: list) -> int:
+    return sum(t.numel() * t.element_size() for block in caches for t in block.values())
+
+
+def decode_run(torch, tf, model, cfg, tokens, steps: int, *, batch: int, max_len: int,
+               quantized: bool, dev, cache=None, start: int = 0, each=None):
+    """``steps`` decode steps of ``tokens[:, start + t]`` from ``cache`` (an
+    empty one when None); returns (logits of every step [B, steps, V], cache,
+    seconds).  ``each(t)`` is entered around step t when given."""
+    if cache is None:
+        cache = tf.init_decode_cache(cfg, batch, max_len, quantized=quantized, device=dev)
+    logits = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        with (each(t) if each else contextlib.nullcontext()):
+            lg, cache = tf.decode_step(model, cfg, cache, tokens[:, start + t:start + t + 1],
+                                       start + t, quantized=quantized)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    return torch.stack(logits, dim=1), cache, time.perf_counter() - t0
+
+
+def routing_replay(torch, tf, model, cfg, f32_model, f32_cfg, toks) -> dict:
+    """An MoE model's forward against the f32 forward: the (token, layer)
+    pairs whose top-k experts differ, and the max |logit diff| with the f32
+    forward's routing replayed in place of the model's own."""
+    from repro_torch.models import moe
+
+    route, seen, replay = moe.route, [], []
+
+    def recording(x, p, mcfg):
+        seen.append(replay.pop(0) if replay else route(x, p, mcfg))
+        return seen[-1]
+
+    moe.route = recording
+    try:
+        want = tf.forward(f32_model, f32_cfg, toks)[0]
+        f32_routes, seen = seen, []
+        tf.forward(model, cfg, toks)
+        flips = sum(int((a[0] != b[0]).any(-1).sum()) for a, b in zip(f32_routes, seen))
+        replay.extend(f32_routes)
+        replayed = tf.forward(model, cfg, toks)[0]
+    finally:
+        moe.route = route
+    return {"flips": flips, "pairs": sum(int(r[0].shape[0]) for r in f32_routes),
+            "replayed_distance": float((replayed.float() - want).abs().max())}
+
+
+def decode_parity(torch, tf, model, cfg, toks, s0: int, dev) -> dict:
+    """prefill(toks[:, :s0]) then decode toks[:, s0:] against forward(toks):
+    in the model's dtype (forward and decode twice, byte-identical), and in
+    f32 on an f32 copy of the same weights.  The f32 gaps must be within the
+    reference's test tolerance; in a lower precision the forward's, the
+    prefill's and the decode's max |diff| from the f32 forward each within
+    ``ZOO_BF16_LIMIT`` (``ZOO_BF16_MOE_LIMIT`` for an MoE model, whose
+    forward with the f32 routing replayed is held to ``ZOO_BF16_LIMIT``)."""
+    b, s = toks.shape
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32_model = type(model)(f32_cfg, device="meta")
+    f32_model.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
+                              strict=True, assign=True)
+    out, logits = {}, {}
+    for name, m, c in (("model", model, cfg), ("f32", f32_model, f32_cfg)):
+        fwd = tf.forward(m, c, toks)[0][:, s0 - 1:]
+        last, caches = tf.prefill(m, c, toks[:, :s0], last_only=True)
+        runs = [decode_run(torch, tf, m, c, toks, s - s0, batch=b, max_len=s, quantized=False,
+                           dev=dev, cache=pad_cache(torch, caches, s), start=s0)[0]
+                for _ in range(2 if name == "model" else 1)]
+        out[name] = {"prefill_gap": logit_gap(torch, last, fwd[:, 0]),
+                     "decode_gap": logit_gap(torch, runs[0], fwd[:, 1:])}
+        if name == "model":
+            out["deterministic"] = (bytes_equal(torch, runs[0], runs[1]) and bytes_equal(
+                torch, fwd, tf.forward(m, c, toks)[0][:, s0 - 1:]))
+        logits[name] = {"forward": fwd.float(), "prefill": last.float(),
+                        "decode": runs[0].float()}
+        del caches, runs, last, fwd
+    want = logits["f32"]["forward"]
+    got = logits["model"]
+    out["f32_distance"] = {
+        "forward": float((got["forward"] - want).abs().max()),
+        "prefill": float((got["prefill"] - want[:, 0]).abs().max()),
+        "decode": float((got["decode"] - want[:, 1:]).abs().max())}
+    out["limit"] = ZOO_BF16_MOE_LIMIT if cfg.moe else ZOO_BF16_LIMIT
+    del logits
+    out["routing"] = (routing_replay(torch, tf, model, cfg, f32_model, f32_cfg, toks)
+                      if cfg.moe else None)
+    out["ok"] = (out["f32"]["prefill_gap"]["within_f32_tol"]
+                 and out["f32"]["decode_gap"]["within_f32_tol"]
+                 and (cfg.dtype == "float32"
+                      or (max(out["f32_distance"].values()) <= out["limit"]
+                          and (out["routing"] is None or out["routing"]["replayed_distance"]
+                               <= ZOO_BF16_LIMIT))))
+    del f32_model
+    return out
+
+
+def parity_line(res: dict) -> str:
+    m, f, e = res["model"], res["f32"], res["f32_distance"]
+    return (f"prefill vs forward max |diff| {m['prefill_gap']['max_abs']:.4g}, decode "
+            f"{m['decode_gap']['max_abs']:.4g} (argmax agreement {m['decode_gap']['argmax']:.4f}); "
+            f"from the f32 forward: forward {e['forward']:.4g}, prefill {e['prefill']:.4g}, "
+            f"decode {e['decode']:.4g} (limit {res['limit']}); "
+            + (f"routing: {res['routing']['flips']} of {res['routing']['pairs']} (token, layer) "
+               f"pairs take other experts than in f32, with the f32 routing replayed the "
+               f"forward is {res['routing']['replayed_distance']:.4g} from f32 (limit "
+               f"{ZOO_BF16_LIMIT}); " if res["routing"] else "") +
+            f"in f32: prefill {f['prefill_gap']['max_abs']:.3g}, decode "
+            f"{f['decode_gap']['max_abs']:.3g} (rtol {ZOO_F32_RTOL}, atol {ZOO_F32_ATOL} held "
+            f"{f['prefill_gap']['within_f32_tol'] and f['decode_gap']['within_f32_tol']}); "
+            f"forward and decode twice byte-identical {res['deterministic']}")
+
+
+def llama_phase(torch, np, dev, z, expect, report_line, counters, launches) -> dict:
+    """12a: llama3.2-3b at full width: prefill + decode against the forward,
+    then the bf16 and the 4-bit cache side by side from an empty cache."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import hadamard
+    from repro_torch.models import kvcache, transformer as tf
+
+    out: dict = {}
+    cfg = z.full_config(z.llama)
+    t0 = time.perf_counter()
+    model = tf.Transformer(cfg, torch.Generator(dev).manual_seed(z.seed), dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    report_line(f"12a {cfg.name}: {out['params']:,} parameters ({cfg.dtype}) initialised "
+                f"on the card in {out['init_s']:.2f} s")
+
+    # Prefill + decode against the forward of the same tokens.
+    b, s0 = z.lm_prefill
+    toks = torch.tensor(lm_batch(z.seed, 0, b, s0 + z.lm_decode, cfg.vocab)["tokens"],
+                        device=dev)
+    with launches_into(launches, "12a_prefill_decode", counters):
+        out["parity"] = decode_parity(torch, tf, model, cfg, toks, s0, dev)
+    report_line(f"12a prefill {b} x {s0} + {z.lm_decode} decode steps vs forward of "
+                f"{s0 + z.lm_decode} tokens: {parity_line(out['parity'])}")
+    expect(out["parity"]["ok"], f"12a: {cfg.name} prefill / decode vs forward: {out['parity']}")
+    expect(out["parity"]["deterministic"], "12a: two bf16 forward / decode runs differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The bf16 and the 4-bit cache from empty, on the same tokens.
+    qb, qlen, steps = z.q_batch, z.q_max_len, z.q_steps
+    qt = torch.tensor(lm_batch(z.seed, 1, qb, steps, cfg.vocab)["tokens"], device=dev)
+    per = {}
+    for name, quantized in (("bf16", False), ("4bit", True)):
+        with launches_into(launches, f"12a_{name}", counters):
+            lg, cache, secs = decode_run(torch, tf, model, cfg, qt, steps, batch=qb,
+                                         max_len=qlen, quantized=quantized, dev=dev)
+        per[name] = {"logits": lg, "seconds": secs, "tokens_per_s": qb * steps / secs,
+                     "cache_bytes": cache_bytes(cache),
+                     "bytes_per_token_layer": cache_bytes(cache) // (qb * qlen * cfg.n_layers)}
+        report_line(f"12a {name} cache: {steps} decode steps of batch {qb} (max_len {qlen}) "
+                    f"in {secs:.3f} s = {per[name]['tokens_per_s']:.1f} tokens/s; cache "
+                    f"{per[name]['cache_bytes']:,} B ({per[name]['bytes_per_token_layer']} B a "
+                    f"token and layer)")
+        # One step traced (the last position again: it rewrites the same row).
+        prof = profile_window(torch, lambda: tf.decode_step(
+            model, cfg, cache, qt[:, steps - 1:steps], steps - 1, quantized=quantized),
+            f"12a {name} decode step", top=6)
+        per[name]["profile"] = prof
+        report_line(f"12a {name} decode step traced: wall {prof['wall_us']:.0f} us, device "
+                    f"busy {prof['device_busy_us']:.0f} us, idle share {prof['idle_share']:.3f}, "
+                    f"{prof['kernels']} device activities")
+        del cache
+    b2 = launches["12a_4bit"]["fwht"]
+    out["b2_per_step"] = b2 / steps
+    expect(b2 == 4 * cfg.n_layers * steps and launches["12a_bf16"]["fwht"] == 0,
+           f"12a: B2 launched {b2} times over {steps} 4-bit steps, not "
+           f"{4 * cfg.n_layers} a step (bf16 cache: {launches['12a_bf16']['fwht']})")
+    lf, lq = per["bf16"]["logits"][:, -1], per["4bit"]["logits"][:, -1]
+    out["agree"] = float((lf.argmax(-1) == lq.argmax(-1)).float().mean())
+    out["max_diff"] = float((lf - lq).abs().max())
+    out["agree_all_steps"] = float((per["bf16"]["logits"].argmax(-1)
+                                    == per["4bit"]["logits"].argmax(-1)).float().mean())
+    report_line(f"12a 4-bit vs bf16 cache at step {steps}: argmax agreement {out['agree']:.4f} "
+                f"(all steps {out['agree_all_steps']:.4f}; the reference's smoke bound >= 0.5), "
+                f"max |logit diff| {out['max_diff']:.4f} (smoke bound < 2.0); B2 "
+                f"{out['b2_per_step']:.0f} launches a step")
+
+    # A second 4-bit run: byte-identical, and at one step every B2 output in
+    # _rotate / _unrotate held against the butterfly, every code against the
+    # CPU plain path's for the same k / v.
+    recorded = {"fwht": [], "kv": []}
+    fwht_fn, quant_fn = hadamard.signed_fwht, tf.quantize_kv
+
+    def record_fwht(x, signs, d_pad):
+        y = fwht_fn(x, signs, d_pad)
+        recorded["fwht"].append((x.clone(), signs, d_pad, y.clone()))
+        return y
+
+    def record_kv(x, spec):
+        codes, scale = quant_fn(x, spec)
+        recorded["kv"].append((x.clone(), spec, codes.clone(), scale.clone()))
+        return codes, scale
+
+    @contextlib.contextmanager
+    def each(t):
+        if t != z.record_step:
+            yield
+            return
+        hadamard.signed_fwht, tf.quantize_kv = record_fwht, record_kv
+        try:
+            yield
+        finally:
+            hadamard.signed_fwht, tf.quantize_kv = fwht_fn, quant_fn
+
+    lg2, cache2, _ = decode_run(torch, tf, model, cfg, qt, steps, batch=qb, max_len=qlen,
+                                quantized=True, dev=dev, each=each)
+    lg3, cache3, _ = decode_run(torch, tf, model, cfg, qt, steps, batch=qb, max_len=qlen,
+                                quantized=True, dev=dev)
+    out["4bit_deterministic"] = (bytes_equal(torch, lg2, per["4bit"]["logits"])
+                                 and bytes_equal(torch, lg3, lg2)
+                                 and all(bytes_equal(torch, cache2[i][n], cache3[i][n])
+                                         for i in range(len(cache2)) for n in cache2[i]))
+    lf2, _, secs = decode_run(torch, tf, model, cfg, qt, steps, batch=qb, max_len=qlen,
+                              quantized=False, dev=dev)
+    per["bf16"]["tokens_per_s_second_run"] = qb * steps / secs
+    out["bf16_deterministic"] = bytes_equal(torch, lf2, per["bf16"]["logits"])
+    del cache2, cache3, lg2, lg3, lf2
+    same = [bytes_equal(torch, y, hadamard.signed_fwht_butterfly(x, s, d))
+            for x, s, d, y in recorded["fwht"]]
+    out["fwht_recorded"] = len(same)
+    out["fwht_byte_equal"] = sum(same)
+    flips = levels = n_codes = 0
+    scale_rel = 0.0
+    for x, spec, codes, scale in recorded["kv"]:
+        c_cpu, s_cpu = kvcache.quantize_kv(x.cpu(), spec)
+        got = kvcache.unpack_4bit(codes.cpu()).long()
+        want = kvcache.unpack_4bit(c_cpu).long()
+        flips += int((got != want).sum())
+        levels = max(levels, int((got - want).abs().max()))
+        n_codes += got.numel()
+        scale_rel = max(scale_rel, float(((scale.cpu() - s_cpu).abs()
+                                          / s_cpu.clamp(min=1e-30)).max()))
+    out["codes"] = {"n": n_codes, "flips": flips, "max_levels": levels,
+                    "scale_max_rel": scale_rel, "calls": len(recorded["kv"])}
+    report_line(f"12a step {z.record_step}: {out['fwht_byte_equal']} of {out['fwht_recorded']} "
+                f"B2 outputs in _rotate / _unrotate byte-equal to signed_fwht_butterfly; "
+                f"codes of {len(recorded['kv'])} quantize_kv calls ({n_codes:,} codes) against "
+                f"the CPU plain path: {flips} one-level flips, max {levels} level(s), scales "
+                f"within rel {scale_rel:.2e}; second / third 4-bit runs byte-identical "
+                f"{out['4bit_deterministic']}, second bf16 run {out['bf16_deterministic']}")
+    expect(out["fwht_recorded"] == 4 * cfg.n_layers and all(same),
+           f"12a: B2 in the 4-bit cache: {out['fwht_byte_equal']} of {out['fwht_recorded']} "
+           f"byte-equal to the butterfly ({4 * cfg.n_layers} expected)")
+    expect(levels <= 1 and flips <= max(1, n_codes // 1000),
+           f"12a: the card's cache codes against the CPU plain path's: {out['codes']}")
+    expect(out["4bit_deterministic"] and out["bf16_deterministic"],
+           "12a: two full-width decode runs differ")
+    out["caches"] = {name: {k: v for k, v in per[name].items() if k != "logits"}
+                     for name in per}
+    del model, per
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_tower_phase(torch, np, dev, z, expect, report_line, counters, launches) -> dict:
+    """12b: the two-tower retrieval cell at full width: the 1M-item corpus
+    encoded (B2), users retrieved through B2 then B1, against the CPU plain
+    path over the same codes and the exact f32 scores."""
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.scoring import topk
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.dist.steps import two_tower_retrieve
+    from repro_torch.models import recsys as rs
+
+    out: dict = {}
+    cfg = z.full_config("two-tower-retrieval")
+    t0 = time.perf_counter()
+    model = rs.TwoTower(cfg, torch.Generator(dev).manual_seed(z.seed), dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    with launches_into(launches, "12b_encode", counters):
+        t0 = time.perf_counter()
+        items = rs.item_embedding(model, cfg, torch.arange(z.tt_items, device=dev))
+        enc = qz.encode(items, metric="cosine")
+        torch.cuda.synchronize()
+        out["encode_s"] = time.perf_counter() - t0
+    hist = torch.tensor(recsys_batch(z.seed, 0, "two-tower-retrieval", cfg,
+                                     z.tt_users)["user_hist"], device=dev)
+    report_line(f"12b {cfg.name}: tables {2 * cfg.user_vocab * cfg.embed_dim * 4:,} B; "
+                f"{z.tt_items:,} items embedded and encoded in {out['encode_s']:.3f} s: "
+                f"{enc.packed.numel():,} B of 4-bit codes (d' {enc.dim_pad})")
+    with launches_into(launches, "12b_retrieve", counters):
+        one = two_tower_retrieve(model, cfg, hist[:1], enc.packed, enc.qnorms, k=10)
+        many = two_tower_retrieve(model, cfg, hist, enc.packed, enc.qnorms, k=10)
+    expect(launches["12b_retrieve"]["fwht"] == 2 and launches["12b_retrieve"]["nibble_dot"] == 2
+           and launches["12b_encode"]["fwht"] >= 1,
+           f"12b: B2 / B1 launches {launches['12b_encode']} {launches['12b_retrieve']}")
+    out["single_in_batch"] = bool(torch.equal(one[1][0], many[1][0]))
+    # The CPU plain path over the same codes and the same weights.
+    cpu_model = model_copy(model, torch.device("cpu"))
+    _, cpu_ids = two_tower_retrieve(cpu_model, cfg, hist.cpu(), enc.packed.cpu(),
+                                    enc.qnorms.cpu(), k=10)
+    out["ids_equal_cpu"] = float((many[1].cpu() == cpu_ids).float().mean())
+    u = rs.user_embedding(model, cfg, hist)
+    _, exact = topk(rs.score_candidates_f32(u, items), 10)
+    out["overlap_exact"] = float(np.mean([len(set(a) & set(b)) / 10 for a, b in
+                                          zip(many[1].tolist(), exact.tolist())]))
+    lat = {}
+    for name, h in (("1", hist[:1]), (str(z.tt_users), hist)):
+        times = []
+        for _ in range(z.tt_reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            two_tower_retrieve(model, cfg, h, enc.packed, enc.qnorms, k=10)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        lat[name] = {"median_ms": float(np.median(times)), "p90_ms": float(np.quantile(times, 0.9))}
+    out["latency"] = lat
+    report_line(f"12b retrieve top-10 of {z.tt_items:,}: ids equal to the CPU plain path's over "
+                f"the same codes in {out['ids_equal_cpu']:.4f} of slots (>= 0.99 held); overlap "
+                f"with the exact f32 top-10 {out['overlap_exact']:.4f} (reported); batch "
+                f"latency (CUDA events, {z.tt_reps} runs) {lat}; launches encode "
+                f"{launches['12b_encode']['fwht']} B2, retrieve {launches['12b_retrieve']['fwht']} "
+                f"B2 + {launches['12b_retrieve']['nibble_dot']} B1")
+    expect(out["ids_equal_cpu"] >= 0.99,
+           f"12b: ids equal to the CPU plain path's in {out['ids_equal_cpu']:.4f} of slots")
+    del model, cpu_model, items, enc, u
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_parity_phase(torch, np, dev, z, expect, report_line, counters, launches) -> dict:
+    """12c: every other registry arch at its smoke config on the card against
+    the CPU plain forward of the same weights; three LMs at full width,
+    forward against prefill + decode, decode twice byte-identical."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic as syn
+    from repro_torch.dist.steps import rs_forward
+    from repro_torch.models import gnn, recsys as rs, transformer as tf
+
+    out: dict = {"smoke": {}, "full": {}}
+    cpu = torch.device("cpu")
+
+    def gap(got, want, tol):
+        d = float((got.cpu().double() - want.double()).abs().max())
+        ok = bool(((got.cpu().double() - want.double()).abs()
+                   <= tol * (1 + want.double().abs())).all())
+        return {"max_abs": d, "within": ok, "tol": tol}
+
+    with launches_into(launches, "12c_smoke", counters):
+        for arch_id in z.lm_archs:
+            cfg = configs.get(arch_id).make_smoke()
+            host = tf.Transformer(cfg, torch.Generator().manual_seed(z.seed), cpu)
+            card = model_copy(host, dev)
+            toks = syn.lm_batch(z.seed, 0, 2, 16, cfg.vocab)["tokens"]
+            res = {"forward": gap(tf.forward(card, cfg, torch.tensor(toks, device=dev))[0],
+                                  tf.forward(host, cfg, torch.tensor(toks))[0], ZOO_SMOKE_TOL)}
+            for name, quantized in (("decode_bf16", False), ("decode_4bit", True)):
+                lc, _, _ = decode_run(torch, tf, card, cfg, torch.tensor(toks, device=dev),
+                                      z.smoke_steps, batch=2, max_len=16, quantized=quantized,
+                                      dev=dev)
+                ch = tf.init_decode_cache(cfg, 2, 16, quantized=quantized, device=cpu)
+                lh = []
+                for t in range(z.smoke_steps):
+                    lg, ch = tf.decode_step(host, cfg, ch, torch.tensor(toks[:, t:t + 1]), t,
+                                            quantized=quantized)
+                    lh.append(lg)
+                tol = ZOO_SMOKE_Q_TOL if quantized and not cfg.mla else ZOO_SMOKE_TOL
+                res[name] = gap(lc, torch.stack(lh, 1), tol)
+            out["smoke"][arch_id] = res
+        g_cfg = configs.get("gin-tu").make_smoke()
+        g_host = gnn.GIN(g_cfg, torch.Generator().manual_seed(z.seed), cpu)
+        g_card = model_copy(g_host, dev)
+        g = syn.random_graph(z.seed, 200, 800, g_cfg.d_feat, g_cfg.n_classes)
+        full = [torch.tensor(g[k]) for k in ("x", "src", "dst")]
+        res = {"forward_full": gap(gnn.forward_full(g_card, g_cfg, *(t.to(dev) for t in full)),
+                                   gnn.forward_full(g_host, g_cfg, *full), ZOO_SMOKE_TOL)}
+        order = np.argsort(g["src"], kind="stable")
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(g["src"], minlength=200))])
+        frontier, blocks = syn.neighbor_sample(z.seed, 0, indptr, g["dst"][order],
+                                               np.arange(16), (5, 3))
+        feats = torch.tensor(g["x"][frontier])
+        tb = [(torch.tensor(s), torch.tensor(d), n) for s, d, n in blocks]
+        res["forward_sampled"] = gap(
+            gnn.forward_sampled(g_card, g_cfg, feats.to(dev),
+                                [(s.to(dev), d.to(dev), n) for s, d, n in tb]),
+            gnn.forward_sampled(g_host, g_cfg, feats, tb), ZOO_SMOKE_TOL)
+        out["smoke"]["gin-tu"] = res
+        makers = {"dlrm-rm2": rs.DLRM, "dien": rs.DIEN, "fm": rs.FM,
+                  "two-tower-retrieval": rs.TwoTower}
+        for arch_id, cls in makers.items():
+            cfg = configs.get(arch_id).make_smoke()
+            host = cls(cfg, torch.Generator().manual_seed(z.seed), cpu)
+            card = model_copy(host, dev)
+            batch = syn.recsys_batch(z.seed, 0, arch_id, cfg, 64)
+            out["smoke"][arch_id] = {"rs_forward": gap(
+                rs_forward(arch_id, card, cfg, {k: torch.tensor(v, device=dev)
+                                                for k, v in batch.items()}),
+                rs_forward(arch_id, host, cfg, {k: torch.tensor(v) for k, v in batch.items()}),
+                ZOO_SMOKE_TOL)}
+    for arch_id, res in out["smoke"].items():
+        report_line(f"12c smoke {arch_id} card vs CPU: " + "; ".join(
+            f"{k} max |diff| {v['max_abs']:.3e} (tol {v['tol']})" for k, v in res.items()))
+        for k, v in res.items():
+            expect(v["within"], f"12c: {arch_id} {k} on the card differs from the CPU plain "
+                                f"forward: {v}")
+
+    for arch_id in z.full_archs:
+        cfg = z.full_config(arch_id)
+        if cfg.moe:        # capacity raised so the forward drops no token (as decode)
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts) / cfg.moe.top_k))
+        t0 = time.perf_counter()
+        model = tf.Transformer(cfg, torch.Generator(dev).manual_seed(z.seed), dev)
+        b, s = z.full_tokens
+        toks = torch.tensor(syn.lm_batch(z.seed, 2, b, s, cfg.vocab)["tokens"], device=dev)
+        with launches_into(launches, f"12c_{arch_id}", counters):
+            res = decode_parity(torch, tf, model, cfg, toks, s - z.full_decode, dev)
+        torch.cuda.synchronize()
+        res.update(params=sum(p.numel() for p in model.parameters()),
+                   seconds=time.perf_counter() - t0)
+        out["full"][arch_id] = res
+        report_line(f"12c full {arch_id}: {res['params']:,} parameters; prefill {b} x "
+                    f"{s - z.full_decode} + {z.full_decode} decode steps vs forward: "
+                    f"{parity_line(res)}; {res['seconds']:.1f} s")
+        expect(res["ok"], f"12c: {arch_id} prefill / decode vs forward: {res}")
+        expect(res["deterministic"], f"12c: {arch_id}: two runs differ")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_sizes(configs) -> SimpleNamespace:
+    """Phase 12's shapes (the rehearsal on the CPU swaps in smaller ones)."""
+    return SimpleNamespace(
+        seed=SEED, llama="llama3.2-3b", lm_prefill=(4, 512), lm_decode=32, q_batch=8,
+        q_max_len=1024, q_steps=64, record_step=10, tt_items=1_000_000, tt_users=64,
+        tt_reps=20, lm_archs=("gemma2-2b", "qwen1.5-0.5b", "llama3.2-3b", "deepseek-v3-671b",
+                              "olmoe-1b-7b"),
+        full_archs=("qwen1.5-0.5b", "gemma2-2b", "olmoe-1b-7b"), full_tokens=(2, 256),
+        full_decode=16, smoke_steps=10,
+        full_config=lambda arch_id: configs.get(arch_id).make_config())
+
+
+def zoo_child(report_path: str) -> int:
+    """Phase 12's child: 12a, 12b and 12c on the card, the report written to
+    ``report_path``; non-zero when the card is missing, a part raised or a
+    check failed (the report lists the failed checks)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 12: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from repro_torch import configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+
+    def report_line(text: str) -> None:
+        say(f"{text} [{smi}]")
+
+    counters = kernel_counters()
+    z = zoo_sizes(configs)
+    report: dict = {"gpu": smi, "launches": {}}
+    for part, fn in (("12a", llama_phase), ("12b", two_tower_phase), ("12c", zoo_parity_phase)):
+        t0 = time.perf_counter()
+        report[part] = fn(torch, np, dev, z, expect, report_line, counters, report["launches"])
+        report[part]["seconds"] = time.perf_counter() - t0
+        report_line(f"phase {part}: {report[part]['seconds']:.1f} s")
+    report["failures"] = FAILURES
+    Path(report_path).write_text(json.dumps(report))
+    return 1 if FAILURES else 0
+
+
+def zoo_phase(c) -> dict:
+    """Phase 12: run ``zoo_child`` in a child process with ``PHASE12_ENV``
+    added, relay its output and every check that failed there."""
+    report = run_child("--phase12-child", PHASE12_ENV, PHASE12_TIMEOUT_S, "phase 12", c.expect)
+    if report is None:
+        return {"launches": {}}
+    for failure in report["failures"]:
+        c.expect(False, f"phase 12 (child): {failure}")
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
@@ -2488,10 +3081,13 @@ def main() -> int:
                          "butterfly and the proxies byte for byte against them and time the "
                          "kernels in turns with these")
     ap.add_argument("--phase11-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--phase12-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     faulthandler.enable()     # a crash in native code names its Python line
     if args.phase11_child:
         return determinism_child(args.phase11_child)
+    if args.phase12_child:
+        return zoo_child(args.phase12_child)
 
     import torch
 
@@ -2933,17 +3529,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     # Every kernel's launch counter; each path runs between a reset and a read.
-    counters = {"fwht": hadamard.fwht_cuda, "nibble_dot": nibble_dot_cuda,
-                "sign_hamming": sign_hamming_cuda, "crumb_affinity": crumb_affinity_cuda,
-                "gather_nibble_dot": gather_nibble_dot_cuda, "crumb_dot": crumb_dot_cuda,
-                "gather_crumb_dot": gather_crumb_dot_cuda}
+    counters = kernel_counters()
 
     def reset_counts() -> None:
-        for counter in counters.values():
-            counter.launches = 0
+        reset_launches(counters)
 
     def read_counts() -> dict:
-        return {name: counter.launches for name, counter in counters.items()}
+        return read_launches(counters)
 
     reset_counts()
     torch.cuda.synchronize()
@@ -3971,6 +4563,13 @@ def main() -> int:
     report["determinism"] = determinism_phase(SimpleNamespace(expect=expect))
     say(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 12. the model zoo's serving forwards ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    report["zoo"] = zoo_phase(SimpleNamespace(expect=expect))
+    say(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/nibble_dot.cu",
@@ -4027,6 +4626,13 @@ def main() -> int:
     for entry in kernels:
         entry["launches_phase11"] = {part: counts.get(entry["name"], 0) for part, counts in
                                      report["determinism"]["launches"].items()}
+    # Phase 12's parts, in its child process: llama3.2-3b's prefill + decode
+    # (12a, bf16), its bf16 and 4-bit caches (B2 in every 4-bit step), the
+    # two-tower corpus encode and retrieval (12b: B2, then B1), the smoke
+    # configs and the full-width LMs (12c).
+    for entry in kernels:
+        entry["launches_phase12"] = {part: counts.get(entry["name"], 0) for part, counts in
+                                     report["zoo"]["launches"].items()}
     report["kernels"] = kernels
     report["precision_launches"] = precision_launches
     report["failures"] = FAILURES

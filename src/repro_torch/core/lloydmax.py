@@ -78,7 +78,13 @@ def quantize(x: torch.Tensor, bits: int = 4) -> torch.Tensor:
                               right=True).to(torch.uint8)
 
 
+@functools.lru_cache(maxsize=8)
+def _centroids_on(bits: int, device: torch.device) -> torch.Tensor:
+    # Cached, as the boundaries: a decode step dequantizes its KV cache on the
+    # card, and a fresh host-to-device copy there would wait for the stream.
+    return torch.as_tensor(centroids(bits), device=device)
+
+
 def dequantize(codes: torch.Tensor, bits: int = 4) -> torch.Tensor:
     """Codes -> centroid values (f32), a table gather."""
-    c = torch.as_tensor(centroids(bits), device=codes.device)
-    return c[codes.long()]
+    return _centroids_on(bits, codes.device)[codes.long()]
