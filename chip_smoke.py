@@ -233,6 +233,25 @@ Phases, in order (any failure exits non-zero and prints no result line):
     the card against the CPU plain forward (LMs: forward, decode over both
     caches; GIN full and sampled; the recsys forwards), and qwen1.5-0.5b,
     gemma2-2b and olmoe-1b-7b at full width as 12a's first part.
+13. training, after phase 12, in a child process with phase 11's
+    environment, under ``torch.use_deterministic_algorithms(True)``.  13a:
+    llama3.2-3b at full width (remat "full", loss_chunk 2048, AdamW
+    defaults) trains 8 steps of 2 x 4,096 tokens twice from the same seeded
+    weights: every loss finite, the two runs' losses and every parameter's
+    and moment's bytes equal; step time by CUDA events, tokens/s, peak
+    memory, one traced eager step.  13b: the same config cut to 2 layers
+    (bf16, every width kept): 12 steps of 1 x 512 with a checkpoint every 4
+    (keep 2) against a run that crashes at step 9 and resumes at 8 from its
+    files: losses, parameters and moments byte-identical, bf16 leaves
+    restored; checkpoint bytes, save and restore seconds; then one f32 step
+    on the card against the CPU plain path.  13c: two-tower-retrieval at
+    full width trains 8 steps of 65,536 twice byte for byte, then serves as
+    12b from its retrained towers (B2 encode, B2 + B1 retrieval, ids against
+    the CPU plain path).  13d: one step of every other arch's smoke config
+    (the four other LMs, GIN full / sampled / graph readout, DLRM, DIEN, FM)
+    against the CPU plain path, each card step twice byte for byte, and
+    ``python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 8``
+    in-process twice (its loss falls, the runs are byte-identical).
 
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -251,6 +270,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -335,6 +355,28 @@ ZOO_F32_RTOL, ZOO_F32_ATOL = 2e-2, 2e-4
 ZOO_BF16_LIMIT, ZOO_BF16_MOE_LIMIT = 0.15, 0.4
 ZOO_SMOKE_TOL = 1e-4     # f32 smoke: card vs CPU plain forward, rtol = atol
 ZOO_SMOKE_Q_TOL = 2e-2   # f32 smoke through the 4-bit cache (butterfly vs Kronecker codes)
+# Phase 13: training on the card (child process, phase 11's environment, under
+# torch.use_deterministic_algorithms(True)).  One AdamW step at TRAIN_LR on
+# the card against the CPU plain path: the loss within TRAIN_LOSS_RTOL, the
+# global gradient norm within TRAIN_NORM_RTOL (summation orders differ; both
+# read <= 3.3e-7 in f32), every gradient leaf within TRAIN_GRAD_REL of the
+# CPU's (its relative L2 distance, and its max |diff| over the leaf's max
+# |g|, each scale floored at TRAIN_GRAD_FLOOR of the whole gradient's: a
+# zero, negated or misscaled gradient on any leaf above that floor reads
+# ~1; read <= 1.2e-5), every
+# parameter within TRAIN_PARAM_ATOL_LR x lr (a gradient element near zero may
+# take the other sign and move its parameter by 2 lr; at step 1 AdamW moves
+# each parameter by ~lr whatever its gradient, so this bound alone tests
+# little), and the elements beyond TRAIN_TIGHT_TOL at most TRAIN_FAR_SHARE of
+# them or TRAIN_FAR_MIN (read: 5.5e-5-1.3e-4 of them).
+PHASE13_ENV = PHASE11_ENV
+PHASE13_TIMEOUT_S = 600
+TRAIN_LR = 1e-3
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-5
+TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-4
+TRAIN_PARAM_ATOL_LR, TRAIN_TIGHT_TOL = 2.5, 1e-6
+TRAIN_FAR_SHARE, TRAIN_FAR_MIN = 2.5e-4, 4
+DIGEST_SLICE = 1 << 26   # elements a slice of tensor_digest's sums
 HYBRID_WORDS = ("report", "market", "team", "season", "price", "study", "city", "data",
                 "café", "naïve", "straße", "北京", "東京", "données", "über", "año")
 
@@ -388,9 +430,10 @@ def batch_latencies(search, queries, batches: int) -> dict:
             "p90_ms": 1e3 * lat[int(0.9 * len(lat)) - 1], "batches": len(lat)}
 
 
-def profile_window(torch, fn, label: str, top: int = 10) -> dict:
+def profile_window(torch, fn, label: str, top: int = 10, warm_up: bool = True) -> dict:
     """Device activity (kernels and copies) over one call of ``fn`` after a
-    warm-up call, traced with torch.profiler: time by name, and the busy
+    warm-up call (unless ``warm_up`` is False: ``fn`` has run already),
+    traced with torch.profiler: time by name, and the busy
     time as the union of the activity intervals over the traced window's
     wall time.  ``fn`` must replay no CUDA graph: with torch 2.11 / CUDA
     12.8, a graph replayed under the profiler's CUPTI tracing crashed the
@@ -399,7 +442,8 @@ def profile_window(torch, fn, label: str, top: int = 10) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2555,7 +2599,7 @@ def bytes_equal(torch, a, b) -> bool:
 def model_copy(model, device):
     """The same parameters (and class) on ``device``."""
     twin = type(model)(model.cfg, device="meta")
-    twin.load_state_dict({k: v.to(device) for k, v in model.state_dict().items()},
+    twin.load_state_dict({k: v.to(device, copy=True) for k, v in model.state_dict().items()},
                          strict=True, assign=True)
     return twin
 
@@ -2846,10 +2890,6 @@ def two_tower_phase(torch, np, dev, z, expect, report_line, counters, launches) 
     """12b: the two-tower retrieval cell at full width: the 1M-item corpus
     encoded (B2), users retrieved through B2 then B1, against the CPU plain
     path over the same codes and the exact f32 scores."""
-    from repro_torch.core import quantize as qz
-    from repro_torch.core.scoring import topk
-    from repro_torch.data.synthetic import recsys_batch
-    from repro_torch.dist.steps import two_tower_retrieve
     from repro_torch.models import recsys as rs
 
     out: dict = {}
@@ -2858,7 +2898,28 @@ def two_tower_phase(torch, np, dev, z, expect, report_line, counters, launches) 
     model = rs.TwoTower(cfg, torch.Generator(dev).manual_seed(z.seed), dev)
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
-    with launches_into(launches, "12b_encode", counters):
+    out.update(two_tower_serve(torch, np, dev, z, model, cfg, "12b", expect, report_line,
+                               counters, launches))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_tower_serve(torch, np, dev, z, model, cfg, part: str, expect, report_line, counters,
+                    launches) -> dict:
+    """``part`` (12b, 13c): ``retrieval_cand``'s items embedded by ``model``'s
+    towers and encoded (B2), users retrieved through B2 then B1, against the
+    CPU plain path over the same codes and the exact f32 scores."""
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.scoring import topk
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.dist.steps import two_tower_retrieve
+    from repro_torch.models import recsys as rs
+
+    out: dict = {}
+    enc_n, ret_n = f"{part}_encode", f"{part}_retrieve"
+    with launches_into(launches, enc_n, counters):
         t0 = time.perf_counter()
         items = rs.item_embedding(model, cfg, torch.arange(z.tt_items, device=dev))
         enc = qz.encode(items, metric="cosine")
@@ -2866,15 +2927,15 @@ def two_tower_phase(torch, np, dev, z, expect, report_line, counters, launches) 
         out["encode_s"] = time.perf_counter() - t0
     hist = torch.tensor(recsys_batch(z.seed, 0, "two-tower-retrieval", cfg,
                                      z.tt_users)["user_hist"], device=dev)
-    report_line(f"12b {cfg.name}: tables {2 * cfg.user_vocab * cfg.embed_dim * 4:,} B; "
+    report_line(f"{part} {cfg.name}: tables {2 * cfg.user_vocab * cfg.embed_dim * 4:,} B; "
                 f"{z.tt_items:,} items embedded and encoded in {out['encode_s']:.3f} s: "
                 f"{enc.packed.numel():,} B of 4-bit codes (d' {enc.dim_pad})")
-    with launches_into(launches, "12b_retrieve", counters):
+    with launches_into(launches, ret_n, counters):
         one = two_tower_retrieve(model, cfg, hist[:1], enc.packed, enc.qnorms, k=10)
         many = two_tower_retrieve(model, cfg, hist, enc.packed, enc.qnorms, k=10)
-    expect(launches["12b_retrieve"]["fwht"] == 2 and launches["12b_retrieve"]["nibble_dot"] == 2
-           and launches["12b_encode"]["fwht"] >= 1,
-           f"12b: B2 / B1 launches {launches['12b_encode']} {launches['12b_retrieve']}")
+    expect(launches[ret_n]["fwht"] == 2 and launches[ret_n]["nibble_dot"] == 2
+           and launches[enc_n]["fwht"] >= 1,
+           f"{part}: B2 / B1 launches {launches[enc_n]} {launches[ret_n]}")
     out["single_in_batch"] = bool(torch.equal(one[1][0], many[1][0]))
     # The CPU plain path over the same codes and the same weights.
     cpu_model = model_copy(model, torch.device("cpu"))
@@ -2882,9 +2943,26 @@ def two_tower_phase(torch, np, dev, z, expect, report_line, counters, launches) 
                                     enc.qnorms.cpu(), k=10)
     out["ids_equal_cpu"] = float((many[1].cpu() == cpu_ids).float().mean())
     u = rs.user_embedding(model, cfg, hist)
-    _, exact = topk(rs.score_candidates_f32(u, items), 10)
+    scores = rs.score_candidates_f32(u, items)
+    _, exact = topk(scores, 10)
     out["overlap_exact"] = float(np.mean([len(set(a) & set(b)) / 10 for a, b in
                                           zip(many[1].tolist(), exact.tolist())]))
+    # What sets that overlap: how close the unit item vectors lie (their mean
+    # pairwise cosine), and each user's exact 10th - 11th score gap against
+    # the 4-bit codes' score error at the returned ids (a scan score is
+    # sqrt(d') x the estimated cosine: both rotations are unnormalised).
+    total, sq = items.double().sum(0), float(items.double().square().sum())
+    n = items.shape[0]
+    out["item_mean_cos"] = (float(total @ total) - sq) / (n * (n - 1))
+    top11 = torch.topk(scores, 11, dim=1).values
+    gap = top11[:, 9] - top11[:, 10]
+    err = (many[0] / math.sqrt(enc.dim_pad) - scores.gather(1, many[1].long())).abs()
+    out["gap_10_11"] = {"median": float(gap.median()), "min": float(gap.min())}
+    out["code_err"] = {"median": float(err.median()), "max": float(err.max())}
+    report_line(f"{part} spread: item vectors' mean pairwise cosine {out['item_mean_cos']:.4f}; "
+                f"exact 10th - 11th score gap median {out['gap_10_11']['median']:.3e} (min "
+                f"{out['gap_10_11']['min']:.3e}); 4-bit score error at the returned ids median "
+                f"{out['code_err']['median']:.3e} (max {out['code_err']['max']:.3e})")
     lat = {}
     for name, h in (("1", hist[:1]), (str(z.tt_users), hist)):
         times = []
@@ -2897,15 +2975,15 @@ def two_tower_phase(torch, np, dev, z, expect, report_line, counters, launches) 
             times.append(start.elapsed_time(end))
         lat[name] = {"median_ms": float(np.median(times)), "p90_ms": float(np.quantile(times, 0.9))}
     out["latency"] = lat
-    report_line(f"12b retrieve top-10 of {z.tt_items:,}: ids equal to the CPU plain path's over "
-                f"the same codes in {out['ids_equal_cpu']:.4f} of slots (>= 0.99 held); overlap "
-                f"with the exact f32 top-10 {out['overlap_exact']:.4f} (reported); batch "
+    report_line(f"{part} retrieve top-10 of {z.tt_items:,}: ids equal to the CPU plain path's "
+                f"over the same codes in {out['ids_equal_cpu']:.4f} of slots (>= 0.99 held); "
+                f"overlap with the exact f32 top-10 {out['overlap_exact']:.4f} (reported); batch "
                 f"latency (CUDA events, {z.tt_reps} runs) {lat}; launches encode "
-                f"{launches['12b_encode']['fwht']} B2, retrieve {launches['12b_retrieve']['fwht']} "
-                f"B2 + {launches['12b_retrieve']['nibble_dot']} B1")
+                f"{launches[enc_n]['fwht']} B2, retrieve {launches[ret_n]['fwht']} "
+                f"B2 + {launches[ret_n]['nibble_dot']} B1")
     expect(out["ids_equal_cpu"] >= 0.99,
-           f"12b: ids equal to the CPU plain path's in {out['ids_equal_cpu']:.4f} of slots")
-    del model, cpu_model, items, enc, u
+           f"{part}: ids equal to the CPU plain path's in {out['ids_equal_cpu']:.4f} of slots")
+    del cpu_model, items, enc, u, scores
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3072,6 +3150,566 @@ def zoo_phase(c) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training on the card (child process).
+# ---------------------------------------------------------------------------
+
+def tensor_digest(torch, named) -> str:
+    """A digest of the bytes of ``(name, tensor)`` pairs, taken on their
+    device: per tensor, the int64 sums of its raw values and of its values
+    times a position weight (one differing element moves the first)."""
+    h = hashlib.sha256()
+    for name, t in named:
+        t = t.detach().contiguous()
+        raw = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        x = t.view(raw).reshape(-1)
+        s1 = s2 = 0
+        for i in range(0, x.numel(), DIGEST_SLICE):
+            c = x[i:i + DIGEST_SLICE].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), dtype=torch.int64, device=c.device) % 1_000_003 + 1
+            s1 += int(c.sum())
+            s2 += int((c * w).sum())
+        h.update(f"{name}:{tuple(t.shape)}:{t.dtype}:{s1}:{s2};".encode())
+    return h.hexdigest()
+
+
+def state_digest(torch, model, state: dict) -> str:
+    """``tensor_digest`` of every parameter, both moments and the step."""
+    named = list(model.named_parameters())
+    for part in ("m", "v", "ef"):
+        named += [(f"{part}.{k}", t) for k, t in state.get(part, {}).items()]
+    return tensor_digest(torch, named + [("step", state["step"])])
+
+
+def timed_steps(torch, step, model, state, batches) -> tuple:
+    """Run ``step`` over ``batches``; (model, state, losses, grad norms, step
+    ms by CUDA events: each step's loss is read back inside its window)."""
+    losses, gnorms, times = [], [], []
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))
+        end.record()
+        end.synchronize()
+        gnorms.append(float(m["grad_norm"]))
+        times.append(start.elapsed_time(end))
+    return model, state, losses, gnorms, times
+
+
+def llama_train_phase(torch, np, dev, z, expect, report_line, counters, launches) -> dict:
+    """13a: llama3.2-3b at full width trains 8 steps of B x 4,096 tokens
+    (remat "full", loss_chunk 2048, AdamW defaults, f32 moments), twice from
+    the same seeded weights: every loss finite, the two runs' losses and the
+    bytes of every parameter and moment equal; step time, tokens/s, peak
+    memory and one traced step reported."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, make_train_step
+
+    cfg = dataclasses.replace(z.full_config(z.llama), loss_chunk=z.loss_chunk)
+    ocfg = AdamWConfig()
+    b, s = z.lm_tokens
+    batches = [torch.tensor(lm_batch(z.seed, i, b, s, cfg.vocab)["tokens"], device=dev)
+               for i in range(z.lm_steps)]
+    step = make_train_step(lambda m, t: tf.lm_loss(m, cfg, t), ocfg)
+    out: dict = {"runs": []}
+    with launches_into(launches, "13a", counters):
+        for run in range(2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = tf.Transformer(cfg, torch.Generator(dev).manual_seed(z.seed), dev)
+            state = init_opt_state(model, ocfg)
+            model, state, losses, gnorms, times = timed_steps(torch, step, model, state, batches)
+            res = {"losses": losses, "grad_norms": gnorms, "step_ms": times,
+                   "digest": state_digest(torch, model, state),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            if run == 0:
+                out["params"] = sum(p.numel() for p in model.parameters())
+                out["profile"] = profile_window(torch, lambda: step(model, state, batches[0]),
+                                                "13a llama3.2-3b train step (eager)",
+                                                warm_up=False)
+            out["runs"].append(res)
+            del model, state
+    r0, r1 = out["runs"]
+    med = float(np.median(r0["step_ms"][1:] + r1["step_ms"][1:]))
+    out.update(step_ms_median=med, tokens_per_s=b * s / (med / 1e3))
+    report_line(f"13a {cfg.name}: {out['params']:,} parameters ({cfg.dtype}, remat "
+                f"{cfg.remat_policy}, loss_chunk {cfg.loss_chunk}), {z.lm_steps} steps of "
+                f"{b} x {s} tokens, twice: losses {r0['losses']}; grad norms {r0['grad_norms']}")
+    report_line(f"13a step (CUDA events, steps 2-{z.lm_steps} of both runs) median {med:.1f} ms "
+                f"= {out['tokens_per_s']:.0f} tokens/s; first steps {r0['step_ms'][0]:.1f} / "
+                f"{r1['step_ms'][0]:.1f} ms; peak allocated {r0['peak_bytes']:,} / "
+                f"{r1['peak_bytes']:,} B; traced step: device busy "
+                f"{out['profile']['device_busy_us'] / 1e3:.1f} ms of "
+                f"{out['profile']['wall_us'] / 1e3:.1f}, idle share "
+                f"{out['profile']['idle_share']:.3f}")
+    expect(all(math.isfinite(x) for x in r0["losses"] + r1["losses"]),
+           f"13a: a loss is not finite: {r0['losses']} {r1['losses']}")
+    expect(r0["losses"] == r1["losses"], f"13a: the two runs' losses differ "
+                                         f"{r0['losses']} {r1['losses']}")
+    expect(r0["digest"] == r1["digest"], "13a: the two runs' parameters or moments differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_gap(torch, host, card, lr: float) -> dict:
+    """Parameters after one step on the CPU and on the card: max |diff|,
+    whether all are within TRAIN_PARAM_ATOL_LR x lr, and the elements beyond
+    TRAIN_TIGHT_TOL against their limit."""
+    max_abs, n_far, n_all = 0.0, 0, 0
+    card_params = dict(card.named_parameters())
+    for k, p in host.named_parameters():
+        c = card_params[k].detach()
+        d = (c.double() - p.detach().to(c.device, torch.float64)).abs()
+        max_abs = max(max_abs, float(d.max()) if d.numel() else 0.0)
+        n_far += int((d > TRAIN_TIGHT_TOL).sum())
+        n_all += d.numel()
+    far_limit = max(TRAIN_FAR_SHARE * n_all, TRAIN_FAR_MIN)
+    return {"max_abs": max_abs, "beyond_tight": n_far, "elements": n_all,
+            "far_limit": far_limit, "within": max_abs <= TRAIN_PARAM_ATOL_LR * lr,
+            "far_within": n_far <= far_limit}
+
+
+def capture_grads(model) -> dict:
+    """Turn ``model``'s gradients on and return a dict that hooks fill with
+    each parameter's gradient as backward leaves it (``make_train_step``
+    frees them after its update)."""
+    grads: dict = {}
+    model.requires_grad_(True)
+    for k, p in model.named_parameters():
+        p.register_post_accumulate_grad_hook(lambda p, k=k: grads.__setitem__(k, p.grad))
+    return grads
+
+
+def grad_gap(torch, host: dict, card: dict, names) -> dict:
+    """Gradients on the card against the CPU's, leaf by leaf: the worst
+    relative L2 distance and the worst max |diff| over the leaf's max |g|.
+    A leaf's scale is floored at TRAIN_GRAD_FLOOR of the whole gradient's
+    (its global norm, its largest element): a gradient that is zero but for
+    rounding, as that of a bias before a softmax, reads at its rounding
+    level (measured: dien's ``att.b``, ~1e-11 against a norm of 0.34, differs
+    by 15x its own norm between card and CPU).  A parameter that backward
+    never reached, as the router bias, has a zero gradient."""
+    pairs = []
+    for k in names:
+        h, c = host.get(k), card.get(k)
+        if h is None and c is None:
+            continue
+        c = c.detach().double() if c is not None else None
+        h = (h.detach().to(c.device if c is not None else h.device, torch.float64)
+             if h is not None else torch.zeros_like(c))
+        pairs.append((k, h, c if c is not None else torch.zeros_like(h)))
+    norm = math.sqrt(sum(float(torch.linalg.vector_norm(h)) ** 2 for _, h, _ in pairs))
+    top = max((float(h.abs().max()) for _, h, _ in pairs if h.numel()), default=0.0)
+    floor_l2, floor_max = TRAIN_GRAD_FLOOR * norm, TRAIN_GRAD_FLOOR * top
+    worst, score = {"l2": 0.0, "max": 0.0, "leaf": None}, -1.0
+    for k, h, c in pairs:
+        d = c - h
+        l2 = float(torch.linalg.vector_norm(d)) / max(float(torch.linalg.vector_norm(h)),
+                                                      floor_l2, 1e-30)
+        mx = float(d.abs().max()) / max(float(h.abs().max()), floor_max, 1e-30)
+        if max(l2, mx) > score:
+            score, worst["leaf"] = max(l2, mx), k
+        worst["l2"], worst["max"] = max(worst["l2"], l2), max(worst["max"], mx)
+    worst["within"] = worst["l2"] <= TRAIN_GRAD_REL and worst["max"] <= TRAIN_GRAD_REL
+    return worst
+
+
+def train_step_pair(torch, dev, host, loss_fn, batch_host, batch_card) -> dict:
+    """One AdamW step (lr TRAIN_LR) of ``host`` on the CPU and of two card
+    copies: loss, grad norm, every gradient leaf and the parameters card
+    against CPU, and the two card steps byte for byte (parameters and
+    moments)."""
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, make_train_step
+
+    ocfg = AdamWConfig(lr=TRAIN_LR)
+    cards = [model_copy(host, dev), model_copy(host, dev)]
+    names = [k for k, _ in host.named_parameters()]
+    grads = [capture_grads(host), capture_grads(cards[0])]
+    step = make_train_step(loss_fn, ocfg)
+    runs = []
+    for m, batch in ((host, batch_host), (cards[0], batch_card), (cards[1], batch_card)):
+        m, st, met = step(m, init_opt_state(m, ocfg), batch)
+        runs.append((m, st, float(met["loss"]), float(met["grad_norm"])))
+    (h, _, h_loss, h_norm), (c, c_st, c_loss, c_norm), (c2, c2_st, c2_loss, _) = runs
+    same = (c_loss == c2_loss and state_digest(torch, c, c_st) == state_digest(torch, c2, c2_st))
+    return {"loss": [c_loss, h_loss], "grad_norm": [c_norm, h_norm],
+            "loss_within": abs(c_loss - h_loss) <= TRAIN_LOSS_RTOL * abs(h_loss),
+            "norm_within": abs(c_norm - h_norm) <= TRAIN_NORM_RTOL * abs(h_norm),
+            "grads": grad_gap(torch, grads[0], grads[1], names),
+            "params": step_gap(torch, h, c, TRAIN_LR), "repeat_equal": same}
+
+
+def pair_line(res: dict) -> str:
+    p, g = res["params"], res["grads"]
+    return (f"loss {res['loss'][0]:.7f} / CPU {res['loss'][1]:.7f}, grad norm "
+            f"{res['grad_norm'][0]:.6f} / {res['grad_norm'][1]:.6f} (rtol {TRAIN_LOSS_RTOL:.0e} / "
+            f"{TRAIN_NORM_RTOL:.0e}); gradients leaf by leaf: worst relative L2 "
+            f"{g['l2']:.3e}, worst max |diff| / max |g| {g['max']:.3e} (<= {TRAIN_GRAD_REL:.0e}; "
+            f"worst leaf {g['leaf']}); parameters max |diff| {p['max_abs']:.3e} (<= "
+            f"{TRAIN_PARAM_ATOL_LR * TRAIN_LR:.1e}), {p['beyond_tight']:,} of {p['elements']:,} "
+            f"beyond {TRAIN_TIGHT_TOL:.0e} (<= {p['far_limit']:,.0f}); repeat byte-identical "
+            f"{res['repeat_equal']}")
+
+
+def pair_checks(expect, label: str, res: dict) -> None:
+    expect(res["loss_within"], f"{label}: loss on the card vs CPU {res['loss']}")
+    expect(res["norm_within"], f"{label}: grad norm on the card vs CPU {res['grad_norm']}")
+    expect(res["grads"]["within"], f"{label}: gradients on the card vs CPU {res['grads']}")
+    expect(res["params"]["within"], f"{label}: parameters after one step {res['params']}")
+    expect(res["params"]["far_within"],
+           f"{label}: parameters beyond {TRAIN_TIGHT_TOL:.0e} after one step {res['params']}")
+    expect(res["repeat_equal"], f"{label}: two steps on the card differ")
+
+
+def restart_phase(torch, np, dev, z, expect, report_line, counters, launches) -> dict:
+    """13b: llama3.2-3b cut to z.cut_layers layers (every width and the
+    vocab kept, bf16): 12 uninterrupted steps of 1 x 512 tokens (a
+    checkpoint every 4, keep 2) against a run that crashes at step 9 and
+    resumes at 8 from its own directory: losses, parameters and moments byte
+    for byte (the first restore of bf16 leaves); then one f32 step on the
+    card against the CPU plain path."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import CheckpointManager, SimulatedFailure, train
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(z.full_config(z.llama), n_layers=z.cut_layers,
+                              loss_chunk=z.loss_chunk)
+    b, s = z.restart_tokens
+    seconds = {"save": [], "restore": []}
+
+    class TimedCheckpoints(CheckpointManager):
+        def save(self, step, tree, extra=None):
+            t0 = time.perf_counter()
+            path = super().save(step, tree, extra)
+            seconds["save"].append(time.perf_counter() - t0)
+            return path
+
+        def restore(self, *args, **kw):
+            t0 = time.perf_counter()
+            got = super().restore(*args, **kw)
+            seconds["restore"].append(time.perf_counter() - t0)
+            return got
+
+    def run(directory, fail_at=None):
+        return train(
+            loss_fn=lambda m, t: tf.lm_loss(m, cfg, t),
+            init_params_fn=lambda: tf.Transformer(cfg, torch.Generator(dev).manual_seed(z.seed),
+                                                  dev),
+            batch_fn=lambda i: torch.tensor(lm_batch(z.seed, i, b, s, cfg.vocab)["tokens"],
+                                            device=dev),
+            n_steps=z.restart_steps, opt_cfg=AdamWConfig(),
+            ckpt=TimedCheckpoints(str(directory), keep=z.keep), ckpt_every=z.ckpt_every,
+            simulate_failure_at=fail_at)
+
+    out: dict = {}
+    with launches_into(launches, "13b", counters), tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        out["disk_free_bytes"] = shutil.disk_usage(td).free
+        ref = run(td / "a")
+        last = td / "a" / f"step_{z.restart_steps:08d}"
+        out["checkpoint_bytes"] = sum(f.stat().st_size for f in last.iterdir())
+        out["kept"] = sorted(p.name for p in (td / "a").iterdir())
+        shutil.rmtree(td / "a")
+        try:
+            run(td / "b", fail_at=z.fail_at)
+            crashed = False
+        except SimulatedFailure:
+            crashed = True
+        gc.collect()
+        resume_dir = td / "b" / f"step_{z.fail_at - 1:08d}"
+        manifest = (json.loads((resume_dir / "manifest.json").read_text())
+                    if resume_dir.exists() else {"leaves": []})
+        out["bf16_leaves"] = sum(e["dtype"] == "bfloat16" for e in manifest["leaves"])
+        resumed = run(td / "b")
+        out["params"] = sum(p.numel() for p in ref.params.parameters())
+    same_params = all(bytes_equal(torch, a, bb) for (_, a), (_, bb) in
+                      zip(ref.params.state_dict().items(), resumed.params.state_dict().items()))
+    same_moments = all(bytes_equal(torch, ref.opt_state[part][k], resumed.opt_state[part][k])
+                       for part in ("m", "v") for k in ref.opt_state[part])
+    same_step = bytes_equal(torch, ref.opt_state["step"], resumed.opt_state["step"])
+    dtypes = sorted({str(p.dtype) for p in resumed.params.parameters()})
+    tail = ref.losses[z.fail_at - 1:]
+    out.update(crashed=crashed, start_step=resumed.start_step, losses=ref.losses,
+               resumed_losses=resumed.losses, save_s=seconds["save"],
+               restore_s=seconds["restore"], same_params=same_params,
+               same_moments=same_moments and same_step, dtypes=dtypes)
+    report_line(f"13b {cfg.name} cut to {z.cut_layers} layers ({out['params']:,} parameters, "
+                f"{cfg.dtype}), {z.restart_steps} steps of {b} x {s}: losses {ref.losses}; "
+                f"crash at {z.fail_at} -> resume at {resumed.start_step}: losses "
+                f"{resumed.losses} (equal: {resumed.losses == tail}), parameters and moments "
+                f"byte-identical {same_params and out['same_moments']}; {out['bf16_leaves']} "
+                f"bf16 leaves restored")
+    report_line(f"13b checkpoints: {out['checkpoint_bytes']:,} B each on disk "
+                f"({out['disk_free_bytes']:,} B free), kept {out['kept']}; save s "
+                f"{[round(x, 2) for x in seconds['save']]}, restore s "
+                f"{[round(x, 2) for x in seconds['restore']]}")
+    expect(crashed, "13b: the run did not crash at the injected step")
+    expect(resumed.start_step == z.fail_at - 1,
+           f"13b: resumed at {resumed.start_step}, not {z.fail_at - 1}")
+    expect(resumed.losses == tail, f"13b: resumed losses {resumed.losses} against {tail}")
+    expect(same_params and out["same_moments"], "13b: resumed parameters or moments differ")
+    expect(out["bf16_leaves"] > 0 and "torch.bfloat16" in dtypes,
+           f"13b: no bf16 leaf was restored ({out['bf16_leaves']}, {dtypes})")
+    expect(len(out["kept"]) == z.keep, f"13b: keep {z.keep} left {out['kept']}")
+    del ref, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One f32 step on the card against the CPU plain path (the weights drawn
+    # on the card, copied to the host).
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    host = model_copy(tf.Transformer(cfg32, torch.Generator(dev).manual_seed(z.seed), dev),
+                      torch.device("cpu"))
+    toks = lm_batch(z.seed, 0, b, s, cfg.vocab)["tokens"]
+    t0 = time.perf_counter()
+    with launches_into(launches, "13b_f32", counters):
+        out["f32_step"] = train_step_pair(torch, dev, host, lambda m, t: tf.lm_loss(m, cfg32, t),
+                                          torch.tensor(toks), torch.tensor(toks, device=dev))
+    out["f32_step"]["seconds"] = time.perf_counter() - t0
+    report_line(f"13b f32 step, card vs CPU plain path ({out['f32_step']['seconds']:.1f} s): "
+                f"{pair_line(out['f32_step'])}")
+    pair_checks(expect, "13b f32", out["f32_step"])
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_tower_train_phase(torch, np, dev, z, expect, report_line, counters, launches) -> dict:
+    """13c: two-tower-retrieval at full width trains 8 steps of
+    ``recsys_train``'s 65,536 (in-batch softmax with logQ, AdamW lr 1e-3),
+    twice byte for byte; the trained towers' gradient on z.tt_grad_rows rows
+    is held to the CPU plain path's leaf by leaf; the trained towers then
+    encode ``retrieval_cand``'s 1,000,000 items (B2) and serve 64 users (B2 +
+    B1) as 12b."""
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models import recsys as rs
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, make_train_step
+
+    cfg = z.full_config("two-tower-retrieval")
+    ocfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(lambda m, bt: rs.two_tower_loss(m, cfg, bt), ocfg)
+
+    def batch(i):
+        return {k: torch.tensor(v, device=dev) for k, v in
+                recsys_batch(z.seed, i, "two-tower-retrieval", cfg, z.tt_batch).items()}
+
+    out: dict = {"runs": []}
+    model = None
+    with launches_into(launches, "13c_train", counters):
+        for run in range(2):
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = rs.TwoTower(cfg, torch.Generator(dev).manual_seed(z.seed), dev)
+            state = init_opt_state(model, ocfg)
+            model, state, losses, gnorms, times = timed_steps(
+                torch, step, model, state, (batch(i) for i in range(z.tt_steps)))
+            out["runs"].append({"losses": losses, "grad_norms": gnorms, "step_ms": times,
+                                "digest": state_digest(torch, model, state),
+                                "peak_bytes": torch.cuda.max_memory_allocated()})
+            del state
+    r0, r1 = out["runs"]
+    same = r0["digest"] == r1["digest"] and r0["losses"] == r1["losses"]
+    report_line(f"13c {cfg.name} training: {z.tt_steps} steps of {z.tt_batch:,}, twice: losses "
+                f"{r0['losses']}; step ms {[round(x, 1) for x in r0['step_ms']]}; peak allocated "
+                f"{r0['peak_bytes']:,} / {r1['peak_bytes']:,} B; runs byte-identical {same}")
+    expect(all(math.isfinite(x) for x in r0["losses"]), f"13c: a loss is not finite {r0}")
+    expect(same, "13c: the two training runs differ")
+    # The trained towers' gradient at full width on z.tt_grad_rows rows, card
+    # against the CPU plain path leaf by leaf (the 2^21-row tables' backward
+    # included).
+    rows = recsys_batch(z.seed, z.tt_steps, "two-tower-retrieval", cfg, z.tt_grad_rows)
+    host = model_copy(model, torch.device("cpu"))
+    names = [k for k, _ in model.named_parameters()]
+    grads = [capture_grads(host), capture_grads(model)]
+    t0 = time.perf_counter()
+    for m, d in ((host, torch.device("cpu")), (model, dev)):
+        batch = {k: torch.tensor(v, device=d) for k, v in rows.items()}
+        rs.two_tower_loss(m, cfg, batch).backward()
+    out["grad"] = grad_gap(torch, grads[0], grads[1], names)
+    out["grad"]["seconds"] = time.perf_counter() - t0
+    g = out["grad"]
+    report_line(f"13c gradient at full width, {z.tt_grad_rows:,} rows, card vs CPU plain path "
+                f"({g['seconds']:.1f} s): worst relative L2 {g['l2']:.3e}, worst max |diff| / "
+                f"max |g| {g['max']:.3e} (<= {TRAIN_GRAD_REL:.0e}; worst leaf {g['leaf']})")
+    expect(out["grad"]["within"], f"13c: gradients on the card vs CPU {out['grad']}")
+    for g in grads:
+        g.clear()
+    del host, grads
+    for p in model.parameters():
+        p.grad = None
+    model.requires_grad_(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = two_tower_serve(torch, np, dev, z, model, cfg, "13c", expect, report_line,
+                                   counters, launches)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def smoke_train_phase(torch, np, dev, z, expect, report_line, counters, launches) -> dict:
+    """13d: one training step of every other arch at its smoke config on the
+    card against the CPU plain path of the same weights (loss, grad norm,
+    every gradient leaf, parameters), each card step twice byte for byte; then
+    ``python -m repro_torch.launch.train`` in-process on the card, twice."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic as syn
+    from repro_torch.dist.steps import _RS_INIT, _RS_LOSS
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import gnn, transformer as tf
+
+    cpu = torch.device("cpu")
+    out: dict = {"smoke": {}}
+
+    def both(batch: dict):
+        return ({k: torch.tensor(v) for k, v in batch.items()},
+                {k: torch.tensor(v, device=dev) for k, v in batch.items()})
+
+    def gin(cfg):
+        return gnn.GIN(cfg, torch.Generator().manual_seed(z.seed), cpu)
+
+    with launches_into(launches, "13d", counters):
+        for arch_id in z.smoke_lms:
+            cfg = configs.get(arch_id).make_smoke()
+            host = tf.Transformer(cfg, torch.Generator().manual_seed(z.seed), cpu)
+            toks = syn.lm_batch(z.seed, 0, 2, 16, cfg.vocab)["tokens"]
+            out["smoke"][arch_id] = train_step_pair(
+                torch, dev, host, lambda m, t, cfg=cfg: tf.lm_loss(m, cfg, t),
+                torch.tensor(toks), torch.tensor(toks, device=dev))
+        g_cfg = configs.get("gin-tu").make_smoke()
+        g = syn.random_graph(z.seed, 200, 800, g_cfg.d_feat, g_cfg.n_classes)
+        g["mask"] = (np.arange(200) % 3 == 0).astype(np.float32)
+        out["smoke"]["gin-tu full"] = train_step_pair(
+            torch, dev, gin(g_cfg),
+            lambda m, bt: gnn.nll_loss(gnn.forward_full(m, g_cfg, bt["x"], bt["src"], bt["dst"]),
+                                       bt["labels"], bt["mask"]), *both(g))
+        order = np.argsort(g["src"], kind="stable")
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(g["src"], minlength=200))])
+        frontier, blocks = syn.neighbor_sample(z.seed, 0, indptr, g["dst"][order],
+                                               np.arange(16), (5, 3))
+        sampled = {"feats": g["x"][frontier], "labels": g["labels"][:16]}
+        for i, (src, dst, _) in enumerate(blocks):
+            sampled[f"src{i}"], sampled[f"dst{i}"] = src, dst
+        sizes = [n for _, _, n in blocks]
+        out["smoke"]["gin-tu sampled"] = train_step_pair(
+            torch, dev, gin(g_cfg),
+            lambda m, bt: gnn.nll_loss(gnn.forward_sampled(
+                m, g_cfg, bt["feats"], [(bt[f"src{i}"], bt[f"dst{i}"], n)
+                                        for i, n in enumerate(sizes)]), bt["labels"]),
+            *both(sampled))
+        r_cfg = dataclasses.replace(g_cfg, readout="graph")
+        mol = syn.random_graph(z.seed + 3, 240, 512, r_cfg.d_feat, r_cfg.n_classes)
+        mol = {"x": mol["x"], "src": mol["src"] % 240, "dst": mol["dst"] % 240,
+               "gid": np.repeat(np.arange(8), 30), "y": np.arange(8) % r_cfg.n_classes}
+        out["smoke"]["gin-tu graphs"] = train_step_pair(
+            torch, dev, gin(r_cfg),
+            lambda m, bt: gnn.nll_loss(gnn.forward_full(
+                m, r_cfg, bt["x"], bt["src"], bt["dst"], graph_ids=bt["gid"], n_graphs=8),
+                bt["y"]), *both(mol))
+        for arch_id in z.smoke_recsys:
+            cfg = configs.get(arch_id).make_smoke()
+            out["smoke"][arch_id] = train_step_pair(
+                torch, dev, _RS_INIT[arch_id](cfg, torch.Generator().manual_seed(z.seed), cpu),
+                lambda m, bt, a=arch_id, c=cfg: _RS_LOSS[a](m, c, bt),
+                *both(syn.recsys_batch(z.seed, 0, arch_id, cfg, 64)))
+    for name, res in out["smoke"].items():
+        report_line(f"13d smoke {name} one step, card vs CPU: {pair_line(res)}")
+        pair_checks(expect, f"13d {name}", res)
+
+    argv = ["--arch", z.launch_arch, "--steps", str(z.launch_steps)]
+    runs = []
+    with launches_into(launches, "13d_launch", counters):
+        for _ in range(2):
+            res = launch_train.main(argv)
+            runs.append((res.losses, tensor_digest(torch, res.params.named_parameters())))
+    losses = runs[0][0]
+    out["launch"] = {"argv": argv, "losses": losses, "repeat_equal": runs[0] == runs[1]}
+    report_line(f"13d python -m repro_torch.launch.train {' '.join(argv)} (in-process, twice): "
+                f"losses {losses}; repeat byte-identical {runs[0] == runs[1]}")
+    expect(np.mean(losses[-3:]) < losses[0], f"13d: launch.train's loss did not fall {losses}")
+    expect(runs[0] == runs[1], "13d: two launch.train runs differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sizes(configs) -> SimpleNamespace:
+    """Phase 13's shapes (the rehearsal on the CPU swaps in smaller ones)."""
+    return SimpleNamespace(
+        seed=SEED, llama="llama3.2-3b", lm_tokens=(2, 4096), lm_steps=8, loss_chunk=2048,
+        cut_layers=2, restart_tokens=(1, 512), restart_steps=12, ckpt_every=4, keep=2,
+        fail_at=9, tt_batch=65536, tt_steps=8, tt_grad_rows=8192, tt_items=1_000_000,
+        tt_users=64, tt_reps=20,
+        smoke_lms=("gemma2-2b", "qwen1.5-0.5b", "deepseek-v3-671b", "olmoe-1b-7b"),
+        smoke_recsys=("dlrm-rm2", "dien", "fm", "two-tower-retrieval"),
+        launch_arch="qwen1.5-0.5b", launch_steps=8,
+        full_config=lambda arch_id: configs.get(arch_id).make_config())
+
+
+def train_child(report_path: str) -> int:
+    """Phase 13's child: 13a-13d on the card under
+    ``torch.use_deterministic_algorithms(True)``, the report written to
+    ``report_path``; non-zero when the card is missing, a part raised or a
+    check failed (the report lists the failed checks)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke phase 13: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from repro_torch import configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+
+    def report_line(text: str) -> None:
+        say(f"{text} [{smi}]")
+
+    counters = kernel_counters()
+    z = train_sizes(configs)
+    report: dict = {"gpu": smi, "launches": {},
+                    "env": {k: os.environ.get(k) for k in PHASE13_ENV}}
+    for part, fn in (("13a", llama_train_phase), ("13b", restart_phase),
+                     ("13c", two_tower_train_phase), ("13d", smoke_train_phase)):
+        t0 = time.perf_counter()
+        report[part] = fn(torch, np, dev, z, expect, report_line, counters, report["launches"])
+        report[part]["seconds"] = time.perf_counter() - t0
+        report_line(f"phase {part}: {report[part]['seconds']:.1f} s")
+    report["deterministic"] = torch.are_deterministic_algorithms_enabled()
+    report["failures"] = FAILURES
+    Path(report_path).write_text(json.dumps(report))
+    return 1 if FAILURES else 0
+
+
+def train_phase(c) -> dict:
+    """Phase 13: run ``train_child`` in a child process with ``PHASE13_ENV``
+    added, relay its output and every check that failed there."""
+    report = run_child("--phase13-child", PHASE13_ENV, PHASE13_TIMEOUT_S, "phase 13", c.expect)
+    if report is None:
+        return {"launches": {}}
+    for failure in report["failures"]:
+        c.expect(False, f"phase 13 (child): {failure}")
+    c.expect(report["deterministic"] and report["env"] == PHASE13_ENV,
+             f"13: the child ran without the deterministic flag or its environment "
+             f"({report['deterministic']}, {report['env']})")
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
@@ -3082,12 +3720,15 @@ def main() -> int:
                          "kernels in turns with these")
     ap.add_argument("--phase11-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--phase12-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--phase13-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     faulthandler.enable()     # a crash in native code names its Python line
     if args.phase11_child:
         return determinism_child(args.phase11_child)
     if args.phase12_child:
         return zoo_child(args.phase12_child)
+    if args.phase13_child:
+        return train_child(args.phase13_child)
 
     import torch
 
@@ -4570,6 +5211,13 @@ def main() -> int:
     report["zoo"] = zoo_phase(SimpleNamespace(expect=expect))
     say(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 13. training on the card ---------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    report["train"] = train_phase(SimpleNamespace(expect=expect))
+    say(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {"name": "nibble_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/nibble_dot.cu",
@@ -4633,6 +5281,13 @@ def main() -> int:
     for entry in kernels:
         entry["launches_phase12"] = {part: counts.get(entry["name"], 0) for part, counts in
                                      report["zoo"]["launches"].items()}
+    # Phase 13's parts, in its child process: llama3.2-3b's training steps
+    # (13a), the restart runs and the f32 step (13b), the two-tower training,
+    # its 1,000,000-item encode (B2) and retrievals (B2, B1) (13c), the smoke
+    # steps and the launcher (13d).
+    for entry in kernels:
+        entry["launches_phase13"] = {part: counts.get(entry["name"], 0) for part, counts in
+                                     report["train"]["launches"].items()}
     report["kernels"] = kernels
     report["precision_launches"] = precision_launches
     report["failures"] = FAILURES

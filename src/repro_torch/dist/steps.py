@@ -1,5 +1,5 @@
-"""Serving steps of the model zoo (counterpart of the serving side of
-``repro/dist/steps.py``).
+"""Serving steps of the model zoo and the recsys init / loss tables
+(counterpart of ``repro/dist/steps.py`` but its dry-run ``Cell``s).
 
 ``rs_forward`` is the recsys serving forward of each arch (``_rs_forward``).
 ``two_tower_retrieve`` is the two-tower ``retrieval_cand`` cell: the user
@@ -8,7 +8,9 @@ composes ``user_embedding`` -> ``prepare(u, COSINE)`` -> the quantizer-space
 rotation (seed 0x6D6F6E61, unnormalised) -> ``scan_topk_pjit`` (cosine,
 k 10); the corpus is ``core.quantize.encode(item_embedding(...))``.  On the
 card the rotation is the Hadamard kernel and the scan the 4-bit scan kernel.
-The dry-run cells and the train steps are training (not here).
+``_RS_INIT`` / ``_RS_LOSS`` are the per-arch recsys tables the training
+launcher shares (``init(cfg, generator, device)``, ``loss(params, cfg,
+batch)``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,20 @@ from ..core.rhdh import rhdh_apply
 from ..core.standardize import COSINE, prepare
 from ..models import recsys as rs
 from .retrieval import scan_topk_pjit
+
+# Per-arch recsys init/loss tables (shared with launch.train and chip_smoke).
+_RS_INIT = {
+    "dlrm-rm2": rs.dlrm_init,
+    "dien": rs.dien_init,
+    "fm": rs.fm_init,
+    "two-tower-retrieval": rs.two_tower_init,
+}
+_RS_LOSS = {
+    "dlrm-rm2": rs.dlrm_loss,
+    "dien": rs.dien_loss,
+    "fm": rs.fm_loss,
+    "two-tower-retrieval": rs.two_tower_loss,
+}
 
 #: The item corpus's and the query's rotation seed (``core.quantize.encode``'s default).
 RETRIEVAL_SEED = 0x6D6F6E61

@@ -1,5 +1,5 @@
 """GIN, the Graph Isomorphism Network (arXiv:1810.00826), over an explicit
-edge index (counterpart of ``repro/models/gnn.py``, serving half).
+edge index (counterpart of ``repro/models/gnn.py``).
 
 Message passing gathers source rows and sums them into destinations with
 ``recsys.segment_reduce``: a stable sort by destination and a per-segment
@@ -8,7 +8,9 @@ every run on the card.
 
 Modes: full-graph node classification, sampled minibatches over nested
 fanout frontiers (``data.synthetic.neighbor_sample``), and batched small
-graphs with a sum readout (``readout="graph"``).
+graphs with a sum readout (``readout="graph"``).  The forwards build an
+autograd graph once the parameters ask for gradients (training:
+``nll_loss``); they are created without.
 """
 
 from __future__ import annotations
@@ -78,14 +80,13 @@ def forward_full(params: GIN, cfg: GINConfig, x: torch.Tensor, edge_src: torch.T
     """Full-graph forward.  x [N, F]; edges as index tensors.  Returns node
     logits [N, C] (readout="node") or graph logits [G, C]."""
     n = x.shape[0]
-    with torch.no_grad():
-        for lp in params.layers:
-            x = gin_layer(lp, x, edge_src, edge_dst, n)
-        if cfg.readout == "graph":
-            if graph_ids is None:
-                raise ValueError("readout='graph' needs graph_ids")
-            return mlp(params.head, segment_reduce(x, graph_ids, n_graphs))
-        return mlp(params.head, x)
+    for lp in params.layers:
+        x = gin_layer(lp, x, edge_src, edge_dst, n)
+    if cfg.readout == "graph":
+        if graph_ids is None:
+            raise ValueError("readout='graph' needs graph_ids")
+        return mlp(params.head, segment_reduce(x, graph_ids, n_graphs))
+    return mlp(params.head, x)
 
 
 def forward_sampled(params: GIN, cfg: GINConfig, feats: torch.Tensor,
@@ -95,9 +96,19 @@ def forward_sampled(params: GIN, cfg: GINConfig, feats: torch.Tensor,
     ``blocks[l] = (src, dst, n_dst)`` index the current frontier (src) and
     the next, smaller one (dst).  Aggregation depth = len(blocks)."""
     h = feats
-    with torch.no_grad():
-        for layer, (src, dst, n_dst) in zip(params.layers, blocks):
-            agg = segment_reduce(h[src.long()], dst, n_dst)
-            hh = (1.0 + layer.eps) * h[:n_dst] + agg
-            h = mlp(layer.mlp, hh, act=F.relu, final_act=F.relu)
-        return mlp(params.head, h)
+    for layer, (src, dst, n_dst) in zip(params.layers, blocks):
+        agg = segment_reduce(h[src.long()], dst, n_dst)
+        hh = (1.0 + layer.eps) * h[:n_dst] + agg
+        h = mlp(layer.mlp, hh, act=F.relu, final_act=F.relu)
+    return mlp(params.head, h)
+
+
+def nll_loss(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood, f32; over the ``mask``ed nodes when given."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
+    if mask is not None:
+        mask = mask.to(ll.dtype)
+        return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return -torch.mean(ll)

@@ -1,5 +1,5 @@
 """RecSys architectures: DLRM, DIEN (AUGRU), two-tower retrieval, FM
-(counterpart of ``repro/models/recsys.py``, serving half).
+(counterpart of ``repro/models/recsys.py``).
 
 The embedding lookup is the hot path: ``embedding_bag`` is a row gather and
 a segment reduction.  The reduction never adds floats with atomics: rows are
@@ -8,7 +8,9 @@ order by ``torch.segment_reduce``, so a bag's bytes are the same every run.
 
 The two-tower model's candidate scoring is either the exact f32 product
 (``score_candidates_f32``) or MonaVec's 4-bit packed scan
-(``dist.steps.two_tower_retrieve``).  The losses are training (not here).
+(``dist.steps.two_tower_retrieve``).  The losses (``bce_loss`` and one a
+model) train every table densely, as ``jax.value_and_grad`` does: a row's
+gradient is accumulated by ``index_put_``'s sorted (deterministic) form.
 """
 
 from __future__ import annotations
@@ -69,6 +71,18 @@ def _l2_normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-12)
 
 
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy from logits, f32.  At a zero logit the
+    gradient is the reference's: ``maximum`` splits the tie as
+    ``jnp.maximum`` does, and ``|x|``'s slope there is 1, as ``jnp.abs``'s
+    (``torch.abs``'s is 0)."""
+    lg = logits.to(torch.float32).reshape(-1)
+    lb = labels.to(torch.float32).reshape(-1)
+    abs_lg = torch.where(lg >= 0, lg, -lg)
+    return torch.mean(torch.maximum(lg, torch.zeros_like(lg)) - lg * lb
+                      + torch.log1p(torch.exp(-abs_lg)))
+
+
 # ---------------------------------------------------------------------------
 # DLRM (arXiv:1906.00091): bottom MLP + embeddings + dot interaction + top MLP.
 # ---------------------------------------------------------------------------
@@ -104,6 +118,10 @@ class DLRM(nn.Module):
         self.top = mlp_init((d_interact,) + cfg.top_mlp, **kw)
 
 
+def dlrm_init(cfg: DLRMConfig, generator: torch.Generator, device="cuda") -> DLRM:
+    return DLRM(cfg, generator, device)
+
+
 def dlrm_forward(params: DLRM, cfg: DLRMConfig, dense_x: torch.Tensor,
                  sparse_ids: torch.Tensor) -> torch.Tensor:
     """dense_x [B, 13]; sparse_ids [B, 26] (single-hot per field) -> logits [B]."""
@@ -118,6 +136,10 @@ def dlrm_forward(params: DLRM, cfg: DLRMConfig, dense_x: torch.Tensor,
     interactions = gram[:, iu[0], iu[1]]                                    # [B, 351]
     top_in = torch.cat([interactions.to(z.dtype), z], dim=-1)
     return mlp(params.top, top_in, act=F.relu)[:, 0]
+
+
+def dlrm_loss(params: DLRM, cfg: DLRMConfig, batch) -> torch.Tensor:
+    return bce_loss(dlrm_forward(params, cfg, batch["dense"], batch["sparse"]), batch["label"])
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +203,10 @@ class DIEN(nn.Module):
         self.mlp = mlp_init((cfg.gru_dim + 2 * cfg.d_in,) + cfg.mlp + (1,), **kw)
 
 
+def dien_init(cfg: DIENConfig, generator: torch.Generator, device="cuda") -> DIEN:
+    return DIEN(cfg, generator, device)
+
+
 def dien_forward(params: DIEN, cfg: DIENConfig, batch, *, unroll: bool = False) -> torch.Tensor:
     """batch: hist_items / hist_cats [B,S], target_item / target_cat [B] -> logits [B].
 
@@ -214,6 +240,10 @@ def dien_forward(params: DIEN, cfg: DIENConfig, batch, *, unroll: bool = False) 
     hist_mean = torch.mean(hist, dim=1)
     feats = torch.cat([h_final, target, hist_mean], dim=-1)
     return mlp(params.mlp, feats, act=torch.sigmoid)[:, 0]
+
+
+def dien_loss(params: DIEN, cfg: DIENConfig, batch) -> torch.Tensor:
+    return bce_loss(dien_forward(params, cfg, batch), batch["label"])
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +297,21 @@ def item_embedding(params: TwoTower, cfg: TwoTowerConfig,
     return _l2_normalize(mlp(params.item_tower, rows, act=F.relu))
 
 
+def two_tower_loss(params: TwoTower, cfg: TwoTowerConfig, batch,
+                   temperature: float = 0.05) -> torch.Tensor:
+    """In-batch sampled softmax with logQ correction (Yi et al., RecSys'19).
+    The [B, B] logits are scaled and corrected in place (the bytes of the
+    reference's ``(u @ v.T) / t - logq``, one [B, B] buffer fewer)."""
+    u = user_embedding(params, cfg, batch["user_hist"])      # [B, D]
+    v = item_embedding(params, cfg, batch["item_id"])        # [B, D]
+    logits = torch.matmul(u, v.T).div_(temperature)          # [B, B]
+    logq = torch.log(torch.clamp(batch["item_freq"], min=1e-9))   # sampling correction
+    logits = logits.sub_(logq[None, :])
+    labels = torch.arange(u.shape[0], device=u.device)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.mean(torch.take_along_dim(logp, labels[:, None], dim=-1))
+
+
 def score_candidates_f32(user_vec: torch.Tensor, cand_vecs: torch.Tensor) -> torch.Tensor:
     """Exact retrieval scoring: [B, D] x [N, D] -> [B, N] (baseline path)."""
     return torch.matmul(user_vec.to(torch.float32), cand_vecs.to(torch.float32).T)
@@ -302,6 +347,10 @@ class FM(nn.Module):
         self.b = zeros((), cfg.torch_dtype, device)
 
 
+def fm_init(cfg: FMConfig, generator: torch.Generator, device="cuda") -> FM:
+    return FM(cfg, generator, device)
+
+
 def fm_forward(params: FM, cfg: FMConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
     """sparse_ids [B, F] -> logits [B].  Pairwise term by the sum-square
     trick: sum_{i<j} <v_i, v_j> = 1/2 [ (sum v_i)^2 - sum v_i^2 ]."""
@@ -311,3 +360,7 @@ def fm_forward(params: FM, cfg: FMConfig, sparse_ids: torch.Tensor) -> torch.Ten
     s = torch.sum(vs, dim=1)                                                   # [B, K]
     pair = 0.5 * torch.sum(s * s - torch.sum(vs * vs, dim=1), dim=-1)
     return params.b + lin + pair
+
+
+def fm_loss(params: FM, cfg: FMConfig, batch) -> torch.Tensor:
+    return bce_loss(fm_forward(params, cfg, batch["sparse"]), batch["label"])

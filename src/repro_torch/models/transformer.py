@@ -1,5 +1,5 @@
 """Decoder-only transformer family covering the registry's LM architectures
-(counterpart of ``repro/models/transformer.py``, serving half).
+(counterpart of ``repro/models/transformer.py``).
 
 One config dataclass spans dense GQA (llama3, qwen1.5 with QKV bias),
 local+global alternating attention with logit softcaps (gemma2), MoE FFN
@@ -9,27 +9,40 @@ stacks (olmoe) and MLA attention + shared/routed experts + MTP (deepseek-v3).
 ``blocks`` are the reference's consecutive homogeneous blocks (DeepSeek's
 dense then MoE layers), each a ``ModuleList`` of per-layer modules where the
 reference stacks ``[L, ...]`` arrays for ``lax.scan``: in PyTorch the layers
-simply run one after another, so ``unroll``, ``remat`` and ``remat_policy``
-change nothing here.  The sharding fields (``dp_axes``, ``act_shard``,
-``attn_*_shard``, ``vocab_shard``) stay so that every registry entry equals
-the reference's field by field; on one device they change nothing either.
+simply run one after another, so ``unroll`` changes nothing here.  ``remat``
+is the reference's ``jax.checkpoint`` around each layer when gradients are
+taken: ``torch.utils.checkpoint`` (non-reentrant) recomputes the layer in
+the backward pass; ``remat_policy="dots"`` keeps the matmuls without batch
+dimensions (``mm`` / ``addmm``, not ``bmm``) and recomputes the rest.  A
+recomputed layer gives the bytes of its first pass.  The sharding fields
+(``dp_axes``, ``act_shard``, ``attn_*_shard``, ``vocab_shard``) stay so
+that every registry entry equals the reference's field by field; on one
+device they change nothing.
 
-The serving entry points are ``forward``, ``prefill`` and ``decode_step``.
-Decode caches keep the reference's stacked layout (a list over blocks of
-``[L, B, S, ...]`` tensors, ``kvcache.init_cache``); ``decode_step`` writes
-the new position into them in place and returns them.  With
-``quantized=True`` the cache is MonaVec's 4-bit cache (``kvcache``), whose
-rotations run the Hadamard kernel.  The losses are training (not here).
+The serving entry points are ``prefill`` and ``decode_step`` (no autograd
+graph); ``forward`` is shared with training, whose loss is ``lm_loss``
+(cross-entropy, chunked when ``loss_chunk`` > 0, + the MoE aux, + the MTP
+head).  Gradients flow once the parameters ask for them
+(``model.requires_grad_(True)``, as ``train.optimizer.make_train_step``
+does); they are created without.  Decode caches keep the reference's stacked
+layout (a list over blocks of ``[L, B, S, ...]`` tensors,
+``kvcache.init_cache``); ``decode_step`` writes the new position into them
+in place and returns them.  With ``quantized=True`` the cache is MonaVec's
+4-bit cache (``kvcache``), whose rotations run the Hadamard kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .kvcache import KVSpec, init_cache, quant_attention_decode, quantize_kv
 from .layers import (Dense, SwiGLU, apply_rope, attention_scores_mask, dense, gqa_attention,
@@ -64,8 +77,8 @@ class TransformerConfig:
     mtp: bool = False                      # deepseek multi-token prediction
     mtp_weight: float = 0.3
     dtype: str = "bfloat16"
-    remat: bool = True                     # reference's activation remat (no effect here)
-    remat_policy: str = "full"             # (no effect here)
+    remat: bool = True                     # recompute each layer in the backward pass
+    remat_policy: str = "full"             # "full" | "dots" (keep mm / addmm outputs)
     loss_chunk: int = 0                    # chunked CE (training)
     unroll: bool = False                   # python-unrolled stack (no effect here)
     dp_axes: Optional[Tuple[str, ...]] = None  # sharding fields: no effect on one device
@@ -156,8 +169,7 @@ class Layer(nn.Module):
 
 
 class MTP(nn.Module):
-    """DeepSeek's depth-1 multi-token-prediction head (carried for the
-    parameter tree; its loss is training)."""
+    """DeepSeek's depth-1 multi-token-prediction head (``lm_loss``)."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
@@ -263,21 +275,51 @@ def _embed(params: Transformer, cfg: TransformerConfig, tokens: torch.Tensor) ->
 
 def forward(params: Transformer, cfg: TransformerConfig, tokens: torch.Tensor, *,
             collect_cache: bool = False, skip_head: bool = False):
-    """tokens [B, S] -> (logits [B,S,V] f32 | None, h_final, aux, caches | None)."""
-    prev = push_matmul_out(cfg.torch_dtype if cfg.bf16_matmul else None)
+    """tokens [B, S] -> (logits [B,S,V] f32 | None, h_final, aux, caches | None).
+    Builds an autograd graph only where parameters ask for gradients."""
+    mm_out = cfg.torch_dtype if cfg.bf16_matmul else None
+    prev = push_matmul_out(mm_out)
     try:
-        with torch.no_grad():
-            return _forward_inner(params, cfg, tokens, collect_cache=collect_cache,
-                                  skip_head=skip_head)
+        return _forward_inner(params, cfg, tokens, collect_cache=collect_cache,
+                              skip_head=skip_head, mm_out=mm_out)
     finally:
         pop_matmul_out(prev)
 
 
-def _forward_inner(params, cfg: TransformerConfig, tokens, *, collect_cache, skip_head):
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep plain matmuls, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_remat(lp, x, positions, window, kind, cfg, mm_out):
+    """``_layer_full`` under the matmul policy of the forward that called it:
+    the recomputation in the backward pass runs outside that forward."""
+    prev = push_matmul_out(mm_out)
+    try:
+        return _layer_full(lp, x, positions, window, kind, cfg)
+    finally:
+        pop_matmul_out(prev)
+
+
+def _wants_grad(params: nn.Module) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
+
+
+def _forward_inner(params, cfg: TransformerConfig, tokens, *, collect_cache, skip_head,
+                   mm_out=None):
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     windows = cfg.layer_windows()
+    layer = _layer_full
+    if cfg.remat and _wants_grad(params):
+        kw = {}
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_policy)
+        layer = lambda *a: checkpoint(_layer_remat, *a, mm_out, use_reentrant=False, **kw)  # noqa: E731
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
@@ -285,7 +327,7 @@ def _forward_inner(params, cfg: TransformerConfig, tokens, *, collect_cache, ski
     for (kind, n), block in zip(cfg.block_layout(), params.blocks):
         kv_list = []
         for i, lp in enumerate(block):
-            x, aux_i, kv_i = _layer_full(lp, x, positions, int(windows[offset + i]), kind, cfg)
+            x, aux_i, kv_i = layer(lp, x, positions, int(windows[offset + i]), kind, cfg)
             aux_total = aux_total + aux_i
             if collect_cache:
                 kv_list.append(kv_i)
@@ -312,15 +354,97 @@ def _lm_head(params: Transformer, cfg: TransformerConfig, h: torch.Tensor) -> to
     return logits
 
 
+# ---------------------------------------------------------------------------
+# Losses (training).
+# ---------------------------------------------------------------------------
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, f32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.take_along_dim(logp, targets[..., None].long(), dim=-1)[..., 0]
+    return -torch.mean(ll)
+
+
+def _chunk_xent(params: Transformer, cfg: TransformerConfig, h: torch.Tensor,
+                targets: torch.Tensor) -> torch.Tensor:
+    return _xent(_lm_head(params, cfg, h), targets)
+
+
+def _head_alias(params: Transformer, cfg: TransformerConfig) -> SimpleNamespace:
+    """The head's weights, each behind a view of its own.  The full chunks'
+    gradients meet at the view and are summed there, last chunk first, before
+    the remainder's joins them: the order in which the reference's scan
+    accumulates its chunks' cotangents and then adds the tail's (in bf16 the
+    order shows in ~40% of the head's gradient elements)."""
+    if cfg.tie_embeddings:
+        return SimpleNamespace(embed=params.embed.view_as(params.embed))
+    head = params.lm_head
+    return SimpleNamespace(lm_head=SimpleNamespace(w=head.w.view_as(head.w), b=head.b))
+
+
+def _xent_from_hidden(params: Transformer, cfg: TransformerConfig, h: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """CE from final hidden states.  With ``cfg.loss_chunk`` > 0 the [B,S,V]
+    f32 logits are never materialised: each full chunk's logits are
+    recomputed in the backward pass (a checkpoint a chunk), the remainder
+    (MTP's S-2 tail) taken as it is; each chunk's mean times its length,
+    summed in order, over S, as the reference's scan (whose gradient order
+    ``_head_alias`` keeps)."""
+    s = h.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk <= 0 or s <= chunk:
+        return _xent(_lm_head(params, cfg, h), targets)
+    n_chunks = s // chunk
+    main = n_chunks * chunk
+    grad = torch.is_grad_enabled() and h.requires_grad
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    head = _head_alias(params, cfg)
+    for i in range(n_chunks):
+        hc, tc = h[:, i * chunk:(i + 1) * chunk], targets[:, i * chunk:(i + 1) * chunk]
+        xent = (checkpoint(_chunk_xent, head, cfg, hc, tc, use_reentrant=False) if grad
+                else _chunk_xent(head, cfg, hc, tc))
+        total = total + xent * chunk
+    if main < s:
+        total = total + _xent(_lm_head(params, cfg, h[:, main:]), targets[:, main:]) * (s - main)
+    return total / s
+
+
+def lm_loss(params: Transformer, cfg: TransformerConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Causal LM loss (+ MoE aux, + the MTP head for deepseek)."""
+    tokens = tokens.long()
+    use_chunked = cfg.loss_chunk > 0
+    if use_chunked:
+        _, h_final, aux, _ = forward(params, cfg, tokens, skip_head=True)
+        loss = _xent_from_hidden(params, cfg, h_final[:, :-1], tokens[:, 1:]) + aux
+    else:
+        logits, h_final, aux, _ = forward(params, cfg, tokens)
+        loss = _xent(logits[:, :-1], tokens[:, 1:]) + aux
+    if cfg.mtp:
+        # Predict token t+2 from (h_t, embed(token_{t+1})) through one extra
+        # layer sharing embeddings and the LM head (DeepSeek-V3 MTP, depth 1).
+        emb_next = params.embed[tokens[:, 1:-1]]
+        h_in = torch.cat([h_final[:, :-2], emb_next], dim=-1)
+        h = dense(params.mtp.proj, h_in)
+        pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+        h, _, _ = _layer_full(params.mtp.layer, h, pos, 0, "dense", cfg)
+        h = rms_norm(h, params.mtp.ln, cfg.norm_eps)
+        if use_chunked:
+            mtp_xent = _xent_from_hidden(params, cfg, h, tokens[:, 2:])
+        else:
+            mtp_xent = _xent(_lm_head(params, cfg, h), tokens[:, 2:])
+        loss = loss + cfg.mtp_weight * mtp_xent
+    return loss
+
+
 def prefill(params: Transformer, cfg: TransformerConfig, tokens: torch.Tensor, *,
             last_only: bool = False):
     """Full forward that also returns the per-block caches (``k`` / ``v``
     [L,B,S,KV,dh] or ``latent`` [L,B,S,C]).  last_only=True returns only the
     final position's logits [B, V]."""
-    logits, h_final, _, caches = forward(params, cfg, tokens, collect_cache=True,
-                                         skip_head=last_only)
-    if last_only:
-        with torch.no_grad():
+    with torch.no_grad():
+        logits, h_final, _, caches = forward(params, cfg, tokens, collect_cache=True,
+                                             skip_head=last_only)
+        if last_only:
             logits = _lm_head(params, cfg, h_final[:, -1:])[:, 0]
     out = []
     for kv in caches:
