@@ -102,8 +102,8 @@ VERSION_SEGMENTS = 8
 VERSION_META = 9
 VERSION_COARSE = 10
 VERSION_TUNE = 11
-_READS = (VERSION, VERSION_PERM, VERSION_SEGMENTS, VERSION_META, VERSION_COARSE,
-          VERSION_TUNE)
+SUPPORTED_VERSIONS = (VERSION, VERSION_PERM, VERSION_SEGMENTS, VERSION_META, VERSION_COARSE,
+                      VERSION_TUNE)
 _COARSE_CODE = {"sign": 1, "crumb": 2}
 _COARSE_NAME = {v: k for k, v in _COARSE_CODE.items()}
 _META_DTYPE = {md.KIND_I64: np.int64, md.KIND_F64: np.float64, md.KIND_STR: np.int32}
@@ -380,7 +380,7 @@ def load(path: str, device: torch.device | str = "cpu") -> MvecFile:
         HEADER_FMT, data[:HEADER_LEN])
     if magic != MAGIC:
         raise ValueError(f"not a .mvec file (magic={magic!r})")
-    if version not in _READS:
+    if version not in SUPPORTED_VERSIONS:
         raise ValueError(
             f"unsupported .mvec version {version}: the port reads versions 6 to 11")
     if metric_c not in _METRIC_NAME:

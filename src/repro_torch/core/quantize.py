@@ -107,10 +107,10 @@ class Encoded:
         return int(self.packed.shape[-1])
 
 
-def _quantize_rotated(rot: torch.Tensor, bits: int):
+def _quantize_rotated(rot: torch.Tensor, bits: int, table: str = "lloydmax"):
     """Rotated f32 -> (codes, dequantized values)."""
-    codes = lloydmax.quantize(rot, bits)
-    return codes, lloydmax.dequantize(codes, bits)
+    codes = lloydmax.quantize(rot, bits, table=table)
+    return codes, lloydmax.dequantize(codes, bits, table=table)
 
 
 def encode(
@@ -120,24 +120,29 @@ def encode(
     seed: int = 0x6D6F6E61,  # "mona"
     bits: int = 4,
     std: Optional[GlobalStd] = None,
+    table: str = "lloydmax",
 ) -> Encoded:
-    """Full pipeline on a [n, d] batch, on x's device; bits 2 or 4."""
+    """Full pipeline on a [n, d] batch, on x's device; bits 2 or 4.
+    ``table="uniform"`` quantizes with the uniform ablation's tables (the
+    paper's Table 7); ``decode`` and the scans read Lloyd-Max centroids, as
+    the reference's do."""
     if bits not in (2, 4):
         raise ValueError(f"encode takes bits 2 or 4, got {bits}; use encode_mixed for the "
                          f"4/2 split")
     prepared = prepare(x.to(torch.float32), metric, std)
     rot = rhdh_apply(prepared, seed, normalized=False)   # quantizer space: ~N(0,1)
-    return encode_rotated(rot, dim=x.shape[1], metric=metric, seed=seed, bits=bits, std=std)
+    return encode_rotated(rot, dim=x.shape[1], metric=metric, seed=seed, bits=bits, std=std,
+                          table=table)
 
 
 def encode_rotated(rot: torch.Tensor, *, dim: int, metric: str, seed: int, bits: int,
-                   std: Optional[GlobalStd]) -> Encoded:
+                   std: Optional[GlobalStd], table: str = "lloydmax") -> Encoded:
     """``encode``'s quantize, norms and pack of rows it has already rotated
     (``rhdh_apply(prepare(x), seed, normalized=False)``); bits 2 or 4."""
     if bits not in (2, 4):
         raise ValueError(f"encode takes bits 2 or 4, got {bits}; use encode_mixed for the "
                          f"4/2 split")
-    codes, deq = _quantize_rotated(rot, bits)
+    codes, deq = _quantize_rotated(rot, bits, table)
     qnorms = torch.linalg.vector_norm(deq, dim=-1)
     packed = pack_4bit(codes) if bits == 4 else pack_2bit(codes)
     return Encoded(packed=packed, qnorms=qnorms, seed=seed, metric=metric,

@@ -25,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from ..launch.mesh import data_axes
+from ..launch.mesh import axes_entry, data_axes
 
 
 def round_up(x: int, m: int) -> int:
@@ -76,6 +76,12 @@ def shard_rows(devices, x: torch.Tensor, fill=0) -> Tuple[torch.Tensor, ...]:
             buf[:hi - lo].copy_(x[lo:hi])
         out.append(buf)
     return tuple(out)
+
+
+def corpus_sharding(mesh, ndim: int = 2) -> tuple:
+    """The spec that splits corpus rows over the data axes, the rest
+    replicated (a ``dist.sharding`` spec)."""
+    return (axes_entry(data_axes(mesh)),) + (None,) * (ndim - 1)
 
 
 def place_sharded(mesh, packed: torch.Tensor, qnorms: torch.Tensor):

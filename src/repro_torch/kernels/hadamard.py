@@ -13,7 +13,8 @@ quantizer-space RHDH rotation of every corpus row and every query:
   which is what the reference computes.
 
 ``signed_fwht`` picks by the tensor's device: the kernel for a CUDA tensor,
-the Kronecker plain version for a CPU tensor.
+the Kronecker plain version for a CPU tensor, and the same plain version,
+shapes only, for a meta tensor (the dry-run's cells).
 """
 
 from __future__ import annotations
@@ -88,11 +89,12 @@ fwht_cuda.launches = 0
 
 
 def signed_fwht(x: torch.Tensor, signs: torch.Tensor, d_pad: int) -> torch.Tensor:
-    """H (pad(x) * signs) over the last axis of x, on x's device."""
+    """H (pad(x) * signs) over the last axis of x, on x's device: the kernel
+    on CUDA, the plain version on the CPU and on meta (shapes only there)."""
     if x.is_cuda:
         lead = x.shape[:-1]
         y = fwht_cuda(x.reshape(-1, x.shape[-1]).contiguous(), signs, d_pad)
         return y.reshape(lead + (d_pad,))
-    if x.device.type != "cpu":
+    if x.device.type not in ("cpu", "meta"):
         raise ValueError(f"no Hadamard path for device {x.device}")
     return signed_fwht_plain(x, signs, d_pad)

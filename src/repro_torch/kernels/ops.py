@@ -2,7 +2,8 @@
 
 Dispatch is by the tensor's device, with no switch and no fallback: a CUDA
 tensor goes through the CUDA kernel, a CPU tensor through the kernel's plain
-version in ``kernels.ref``.  A mixed (bits=3) corpus is scored block by
+version in ``kernels.ref``, and a meta tensor through the plain version too,
+which there gives shapes and dtypes only.  A mixed (bits=3) corpus is scored block by
 block: the 4-bit scan of its first ``n4_dims / 2`` bytes against the first
 ``n4_dims`` query dims plus the 2-bit scan of the rest, both on column views
 of the codes and queries (the kernels take a row stride), with one f32 add
@@ -25,10 +26,12 @@ from .nibble_dot import crumb_dot_cuda, nibble_dot_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; any other device raises."""
+    """True for a CUDA tensor, False for a CPU or a meta one; any other device
+    raises.  On meta the plain version is a shape-only route: it computes
+    nothing and gives the outputs' shapes and dtypes (the dry-run's cells)."""
     if t.is_cuda:
         return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel path for device {t.device}")
     return False
 
