@@ -45,14 +45,20 @@ class BatcherStats(obs.DeltaStats):
 
 
 class Ticket:
-    """Handle for one submitted request; ``result()`` flushes if needed."""
+    """Handle for one submitted request; ``result()`` flushes if needed.
+    ``id`` is the request's sequence number in its batcher; ``t_submit`` and
+    ``t_queued`` the host clock (``obs.clock``) when its ``submit`` began and
+    returned, which a trace active at ``flush()`` turns into the request's
+    ``batcher.submit`` and ``batcher.queue`` spans."""
 
-    __slots__ = ("_batcher", "_result", "_error")
+    __slots__ = ("_batcher", "_result", "_error", "id", "t_submit", "t_queued")
 
-    def __init__(self, batcher: "MicroBatcher") -> None:
+    def __init__(self, batcher: "MicroBatcher", id: int = 0, t_submit: float = 0.0) -> None:
         self._batcher = batcher
         self._result: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._error: Optional[BaseException] = None
+        self.id = id
+        self.t_submit = self.t_queued = t_submit
 
     def done(self) -> bool:
         return self._result is not None or self._error is not None
@@ -91,7 +97,8 @@ class MicroBatcher:
     ``submit`` never executes; ``flush`` drains every group with as few
     bucketed plan executions as possible (whole requests are packed into
     batches of at most ``max_batch`` rows; an oversized single request runs
-    alone rather than being split).
+    alone rather than being split).  The queue's depth and rows are counts
+    kept by ``submit`` and cleared by ``flush``.
     """
 
     def __init__(self, registry, *, max_batch: int = 1024) -> None:
@@ -99,6 +106,9 @@ class MicroBatcher:
         self.max_batch = int(max_batch)
         self.stats = BatcherStats()
         self._groups: Dict[tuple, _Group] = {}
+        self._seq = 0             # the last request's id
+        self._pending = 0         # requests queued
+        self._pending_rows = 0    # their query rows
 
     # -- enqueue -----------------------------------------------------------
 
@@ -120,6 +130,7 @@ class MicroBatcher:
         the group's search.  ``text=`` (a str, or one str per query row)
         routes the group through the hybrid path: its texts concatenate
         alongside the query rows."""
+        t_submit = obs.clock()
         ns = self.registry.resolve_namespace(token)
         if ns is None:
             raise PermissionError("401: token rejected")
@@ -137,42 +148,51 @@ class MicroBatcher:
                 token=token, namespace=ns, collection=collection, k=k,
                 knobs=tuple(sorted(knobs.items())), where=where,
                 texts=[] if texts is not None else None)
-        ticket = Ticket(self)
+        self._seq += 1
+        ticket = Ticket(self, self._seq, t_submit)
+        rows = int(q.shape[0])
         group.queries.append(q)
         if texts is not None:
             group.texts.append(texts)
         group.tickets.append(ticket)
+        self._pending += 1
+        self._pending_rows += rows
         self.stats.requests += 1
-        self.stats.rows += int(q.shape[0])
-        obs.inc("batcher.requests", **{"namespace": ns})
-        obs.inc("batcher.rows", int(q.shape[0]), **{"namespace": ns})
-        obs.set_gauge("batcher.queue_depth", self.pending)
-        obs.set_gauge("batcher.queued_rows", self.pending_rows)
+        self.stats.rows += rows
+        obs.inc("batcher.requests", namespace=ns)
+        obs.inc("batcher.rows", rows, namespace=ns)
+        obs.set_gauge("batcher.queue_depth", self._pending)
+        obs.set_gauge("batcher.queued_rows", self._pending_rows)
+        ticket.t_queued = obs.clock()
         return ticket
 
     @property
     def pending(self) -> int:
-        return sum(len(g.tickets) for g in self._groups.values())
+        return self._pending
 
     @property
     def pending_rows(self) -> int:
-        return sum(int(q.shape[0]) for g in self._groups.values()
-                   for q in g.queries)
+        return self._pending_rows
 
     # -- drain -------------------------------------------------------------
 
     def _execute(self, group: _Group, queries: List[np.ndarray], tickets: List[Ticket],
-                 texts: Optional[List[List[str]]] = None) -> None:
+                 texts: Optional[List[List[str]]] = None,
+                 caller: Optional[obs.Span] = None) -> None:
         """Run one coalesced chunk; a failure (stale collection, knobs the
         collection's backend rejects, ...) is delivered to THIS chunk's
-        tickets — other groups and chunks are isolated and still execute."""
+        tickets — other groups and chunks are isolated and still execute.
+        Under a trace, each request's ``batcher.submit`` and ``batcher.queue``
+        spans (to this chunk's ``batcher.execute``) go under ``caller``."""
         labels = {"namespace": group.namespace}
         rows = sum(int(q.shape[0]) for q in queries)
         with obs.timed_span("batcher.execute", histogram="batcher.flush_us",
                             labels=labels,
                             attrs={"namespace": group.namespace,
                                    "collection": group.collection,
-                                   "requests": len(tickets), "rows": rows}):
+                                   "requests": len(tickets), "rows": rows,
+                                   "first_request": tickets[0].id,
+                                   "last_request": tickets[-1].id}) as sp:
             # Coalescing factor: requests folded into this one plan call.
             obs.observe("batcher.coalesced_requests", len(tickets),
                         edges=obs.DEFAULT_COUNT_EDGES, **labels)
@@ -192,47 +212,57 @@ class MicroBatcher:
                 obs.inc("batcher.errors", **labels)
                 for t in tickets:
                     t._error = e
-                return
-            self.stats.executions += 1
-            obs.inc("batcher.executions", **labels)
-            with obs.timed_span("batcher.scatter",
-                                attrs={"requests": len(tickets)}):
-                off = 0
-                for q, t in zip(queries, tickets):
-                    m = q.shape[0]
-                    t._result = (scores[off: off + m], ids[off: off + m])
-                    off += m
+            else:
+                self.stats.executions += 1
+                obs.inc("batcher.executions", **labels)
+                with obs.timed_span("batcher.scatter",
+                                    attrs={"requests": len(tickets)}):
+                    off = 0
+                    for q, t in zip(queries, tickets):
+                        m = q.shape[0]
+                        t._result = (scores[off: off + m], ids[off: off + m])
+                        off += m
+        if sp is not None and caller is not None:
+            tr = obs.current_trace()
+            for t in tickets:
+                tr.add("batcher.submit", t.t_submit, t.t_queued, parent=caller, request=t.id)
+                tr.add("batcher.queue", t.t_queued, sp.t_start, parent=caller,
+                       kind=obs.WAIT, request=t.id)
 
     def flush(self) -> int:
         """Execute every pending group; returns the number of plan
         executions attempted.  Request order within a group is preserved by
         construction (concat order == submission order)."""
-        groups, self._groups = self._groups, {}
-        executions = 0
-        for group in groups.values():
-            hybrid = group.texts is not None
-            chunk_q: List[np.ndarray] = []
-            chunk_t: List[Ticket] = []
-            chunk_x: Optional[List[List[str]]] = [] if hybrid else None
-            rows = 0
-            texts = group.texts if hybrid else [None] * len(group.queries)
-            for q, x, t in zip(group.queries, texts, group.tickets):
-                if chunk_q and rows + q.shape[0] > self.max_batch:
-                    self._execute(group, chunk_q, chunk_t, chunk_x)
+        tr = obs.current_trace()
+        caller = None if tr is None else tr.open_span
+        with obs.span("batcher.flush"):
+            groups, self._groups = self._groups, {}
+            self._pending = self._pending_rows = 0
+            executions = 0
+            for group in groups.values():
+                hybrid = group.texts is not None
+                chunk_q: List[np.ndarray] = []
+                chunk_t: List[Ticket] = []
+                chunk_x: Optional[List[List[str]]] = [] if hybrid else None
+                rows = 0
+                texts = group.texts if hybrid else [None] * len(group.queries)
+                for q, x, t in zip(group.queries, texts, group.tickets):
+                    if chunk_q and rows + q.shape[0] > self.max_batch:
+                        self._execute(group, chunk_q, chunk_t, chunk_x, caller)
+                        executions += 1
+                        chunk_q, chunk_t, rows = [], [], 0
+                        chunk_x = [] if hybrid else None
+                    chunk_q.append(q)
+                    chunk_t.append(t)
+                    if hybrid:
+                        chunk_x.append(x)
+                    rows += int(q.shape[0])
+                if chunk_q:
+                    self._execute(group, chunk_q, chunk_t, chunk_x, caller)
                     executions += 1
-                    chunk_q, chunk_t, rows = [], [], 0
-                    chunk_x = [] if hybrid else None
-                chunk_q.append(q)
-                chunk_t.append(t)
-                if hybrid:
-                    chunk_x.append(x)
-                rows += int(q.shape[0])
-            if chunk_q:
-                self._execute(group, chunk_q, chunk_t, chunk_x)
-                executions += 1
-        if executions:
-            self.stats.flushes += 1
-            obs.inc("batcher.flushes")
-        obs.set_gauge("batcher.queue_depth", self.pending)
-        obs.set_gauge("batcher.queued_rows", self.pending_rows)
+            if executions:
+                self.stats.flushes += 1
+                obs.inc("batcher.flushes")
+        obs.set_gauge("batcher.queue_depth", self._pending)
+        obs.set_gauge("batcher.queued_rows", self._pending_rows)
         return executions

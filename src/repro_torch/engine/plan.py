@@ -79,7 +79,11 @@ cascade_shard_scan on a sharded plan) reports to the stage observer
 (``set_stage_observer``, driven by ``repro_torch.analysis``) whenever its
 Python runs eagerly: every CPU search, the warm-up on the card and
 ``run_eager``.  Never while a stream captures: an observer inside a capture
-would run once and never on a replay.
+would run once and never on a replay.  A capture records instead a CUDA
+timing event at each stage's start and end, nodes of the graph that every
+replay runs; under a trace (``repro_torch.obs``) a replay reads them, and
+times its copies in and out, into ``device.*`` spans after its
+``stream_wait``.
 """
 
 from __future__ import annotations
@@ -141,12 +145,38 @@ def observe(kind: str, stage: str, fn: Callable, args: tuple) -> None:
         _STAGE_OBSERVER(kind, stage, fn, args)
 
 
-def observed(kind: str, stage: str, fn: Callable) -> Callable:
-    """``fn`` as a plan stage: its calls report to the stage observer."""
+# The stage events of the graph ``_Captured`` is capturing (None otherwise):
+# every stage of the capture appends (span name, start, end) to it.
+_STAGE_EVENTS: Optional[list] = None
+
+
+def observed(kind: str, stage: str, fn: Callable, clocked: bool = False) -> Callable:
+    """``fn`` as a plan stage: its calls report to the stage observer.
+    While a graph is captured, CUDA timing events at its start and end
+    become nodes of the graph (read as ``device.<stage>`` spans after a
+    replay); run eagerly under a trace, a ``clocked`` stage (a plan on the
+    CPU, where the host runs it) is timed by the host clock into the same
+    span."""
+    name = "device." + stage
+
     def run(*args):
         if _STAGE_OBSERVER is not None:
             observe(kind, stage, fn, args)
-        return fn(*args)
+        if _STAGE_EVENTS is not None:
+            start = torch.cuda.Event(enable_timing=True, external=True)
+            end = torch.cuda.Event(enable_timing=True, external=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            _STAGE_EVENTS.append((name, start, end))
+            return out
+        tr = obs.current_trace() if clocked else None
+        if tr is None:
+            return fn(*args)
+        t0 = obs.clock()
+        out = fn(*args)
+        tr.add(name, t0, obs.clock(), kind=obs.DEVICE)
+        return out
     return run
 
 
@@ -204,21 +234,64 @@ def _wait() -> None:
     torch.cuda.current_stream().synchronize()
 
 
+def _stream_wait() -> None:
+    """``_wait`` (looked up at the call) in a ``stream_wait`` span."""
+    with obs.wait_span("stream_wait"):
+        _wait()
+
+
+#: The anchor's error bound (s) to stop at, and its tries.
+_ANCHOR_ERR_S, _ANCHOR_TRIES = 10e-6, 8
+
+
+def _anchor(tr: obs.QueryTrace, event: "torch.cuda.Event") -> None:
+    """Take ``tr``'s anchor (in a ``trace.anchor`` span): ``event`` recorded
+    on the current stream, the host clock read just before the record and
+    just after the event is seen to have run (a spin on ``query``, which
+    also drains the stream); the midpoint is its host time and half the
+    bracket its error bound, tried again (up to ``_ANCHOR_TRIES``) while
+    that bound is over ``_ANCHOR_ERR_S``."""
+    stream = torch.cuda.current_stream()
+    with obs.span("trace.anchor"):
+        for _ in range(_ANCHOR_TRIES):
+            t0 = obs.clock()
+            event.record(stream)
+            while not event.query():
+                pass
+            t1 = obs.clock()
+            if t1 - t0 <= 2 * _ANCHOR_ERR_S:
+                break
+    tr.set_anchor(event, (t0 + t1) / 2, (t1 - t0) / 2)
+
+
 class _Captured:
-    """One captured CUDA graph: ``fn``'s outputs (its static tensors) and the
-    kernel launches one replay runs, added to the wrappers per replay."""
+    """One captured CUDA graph: ``fn``'s outputs (its static tensors), the
+    kernel launches one replay runs, added to the wrappers per replay, and
+    its stages' timing events (graph nodes: each replay records them)."""
 
     def __init__(self, fn: Callable, dev: torch.device) -> None:
+        global _STAGE_EVENTS
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), cuda_build.capture_tally() as tally, \
-                torch.cuda.graph(self.graph):
-            self.out = fn()
+        self.events: list = []
+        _STAGE_EVENTS = self.events
+        try:
+            with torch.cuda.device(dev), cuda_build.capture_tally() as tally, \
+                    torch.cuda.graph(self.graph):
+                self.out = fn()
+        finally:
+            _STAGE_EVENTS = None
         self.tally = dict(tally)
 
     def replay(self) -> None:
         self.graph.replay()
         for wrapper, n in self.tally.items():
             wrapper.launches += n
+
+    def read_events(self, tr: obs.QueryTrace) -> None:
+        """The latest replay's stages as device spans of ``tr`` (after the
+        wait that ended it, before the next replay records them again)."""
+        for name, start, end in self.events:
+            tr.add_events(name, start, end)
 
 
 class _Graph:
@@ -254,6 +327,9 @@ class _Graph:
         # Pinned host buffers: the queries go in and the top-k comes out by
         # asynchronous copies, with one wait for the stream per search.
         self.q_host = _pinned(self.q)
+        # Under a trace: timing events around the copies in and out, and the
+        # anchor's (made at the first traced replay, reused by the next).
+        self.trace_events: Optional[list] = None
         self.parts: list = []     # (_Captured, is a loop block), in replay order
         self.last_blocks: list = []
         if plan.program is None:
@@ -327,10 +403,12 @@ class _Graph:
         """Whether this graph was captured over exactly these tensors."""
         return _same_tensors(arrays, self.arrays)
 
-    def replay_parts(self, blocks: Optional[Sequence[int]] = None) -> None:
+    def replay_parts(self, blocks: Optional[Sequence[int]] = None,
+                     tr: Optional[obs.QueryTrace] = None) -> None:
         """Replay every part in order: each loop's block until its flag
         reads False, or ``blocks[i]`` times for the i-th loop with no check
-        (the latest search's counts, to time the device alone)."""
+        (the latest search's counts, to time the device alone).  With
+        ``tr`` (anchored), each checked block's stages become its spans."""
         counts = []
         for part, loop in self.parts:
             if not loop:
@@ -345,20 +423,44 @@ class _Graph:
                         break
                     continue
                 self.flag_host.copy_(part.out, non_blocking=True)
-                _wait()
+                _stream_wait()
+                if tr is not None:
+                    part.read_events(tr)
                 if not bool(self.flag_host):
                     break
             counts.append(n)
         self.last_blocks = counts
 
+    def _trace(self) -> Optional[obs.QueryTrace]:
+        """The active trace if this graph is on a card, anchored (by this
+        graph's anchor event if the trace has none yet)."""
+        tr = obs.current_trace()
+        if tr is None or not _on_card(self.q.device):
+            return None
+        if self.trace_events is None:
+            self.trace_events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        if tr.anchor is None:
+            _anchor(tr, self.trace_events[4])
+        return tr
+
     def replay(self, call: "_Call"):
-        """The top-k (vals, pos) of rows [:b], on the host."""
+        """The top-k (vals, pos) of rows [:b], on the host.  Under a trace on
+        the card, timing events around the copies in and out, and the
+        stages' events, become device spans after the wait."""
         q, b, live = call.q, call.b, call.live
+        tr = self._trace()
+        if tr is not None:
+            h2d_start, h2d_end, d2h_start, d2h_end = self.trace_events[:4]
+            stream = torch.cuda.current_stream()
         if q.is_cuda:
             self.q.copy_(q)
         else:
             self.q_host.copy_(q)
+            if tr is not None:
+                h2d_start.record(stream)
             self.q.copy_(self.q_host, non_blocking=True)
+            if tr is not None:
+                h2d_end.record(stream)
         if b != self.b:
             self.q_valid[:b].fill_(True)
             self.q_valid[b:].fill_(False)
@@ -374,10 +476,21 @@ class _Graph:
             if not np.array_equal(self.consts_host[i], c):
                 self.consts[i].copy_(torch.from_numpy(np.array(c)))
                 self.consts_host[i] = np.array(c)
-        self.replay_parts()
+        self.replay_parts(tr=tr)
+        if tr is not None:
+            d2h_start.record(stream)
         self.vals_host.copy_(self.vals, non_blocking=True)
         self.pos_host.copy_(self.pos, non_blocking=True)
-        _wait()
+        if tr is not None:
+            d2h_end.record(stream)
+        _stream_wait()
+        if tr is not None:
+            if not q.is_cuda:
+                tr.add_events("device.h2d", h2d_start, h2d_end)
+            for part, loop in self.parts:
+                if not loop:
+                    part.read_events(tr)
+            tr.add_events("device.d2h", d2h_start, d2h_end)
         return self.vals_host[:b].clone(), self.pos_host[:b].clone()
 
 
@@ -682,13 +795,16 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
     n_total, n_segs, k = offsets[-1], len(seeds), key.k
     base_n = seg_ns[0]
     kind = type(backend).__name__
+    # Each stage under the reference's name; where the host runs the plan,
+    # a trace times the stages by the host clock.
+    stage = functools.partial(observed, kind, clocked=not _on_card(torch.device(key.device)))
     is_ivf = isinstance(backend, ivf_mod.IvfFlatIndex)
     cascade = "rescore_mult" in knobs
     is_hnsw = isinstance(backend, hnsw_mod.HnswIndex)
     n_head = len(_head(backend))
     at_perm = n_head + (3 if cascade else 2) * n_segs
     where_fn = (None if where is None
-                else observed(kind, "predicate_mask", pred.build_stage_fn(where)))
+                else stage("predicate_mask", pred.build_stage_fn(where)))
 
     def rotate_all(q: torch.Tensor, perm: Optional[torch.Tensor]) -> list:
         """The query prepared once and rotated under each segment's seed
@@ -699,7 +815,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
             rot = rhdh_apply(prepared, seed, normalized=False)
             rots.append(rot if perm is None else rot[..., perm])
         return rots
-    rotate = observed(kind, "rotate", rotate_all)
+    rotate = stage("rotate", rotate_all)
 
     def masked_live(live: torch.Tensor, arrays: tuple, consts: tuple) -> torch.Tensor:
         """The live mask AND the predicate's mask (boolean algebra only)."""
@@ -716,7 +832,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
         """One segment's metric-adjusted full scan [b, n_i]."""
         return adjust_scores(bf_mod.scan_stage(q_rot, packed, bits=bits, n4_dims=n4),
                              qnorms, metric)
-    scan = observed(kind, "scan", scan_segment)
+    scan = stage("scan", scan_segment)
 
     def merge_extras(q_valid, live, vals, pos, *side_cols):
         """The extra segments' scans, masked and merged into the base
@@ -726,7 +842,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
             side.masked_fill_(~live[None, base_n:], _NEG)
             vals, pos = seg.merge_stage(vals, pos, side, base_n, k)
         return finish(q_valid, vals, pos)
-    merge = observed(kind, "merge", merge_extras)
+    merge = stage("merge", merge_extras)
 
     def side_scans(rots, arrays) -> list:
         return [scan(rots[i], arrays[n_head + 2 * i], arrays[n_head + 1 + 2 * i])
@@ -740,18 +856,18 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
 
         def coarse_scan(q_rot, ccodes):
             return bin_mod.coarse_scan_stage(q_rot, ccodes, kind=coarse_kind)
-        coarse = observed(kind, "coarse_scan", coarse_scan)
+        coarse = stage("coarse_scan", coarse_scan)
 
         def make_survivors(m_i: int) -> Callable:
             def survivor_topk(proxy, live_s):
                 return bin_mod.survivor_topk_stage(proxy, live_s, m=m_i)
-            return observed(kind, "survivor_topk", survivor_topk)
+            return stage("survivor_topk", survivor_topk)
         survivors = [make_survivors(m_i) for m_i in seg_ms]
 
         def gathered_rescore(q_rot, packed, qnorms, cand):
             return bin_mod.gathered_rescore_stage(q_rot, packed, qnorms, cand, bits=bits,
                                                   metric=metric, n4_dims=n4)
-        rescore = observed(kind, "gathered_rescore", gathered_rescore)
+        rescore = stage("gathered_rescore", gathered_rescore)
 
         def select(q_valid, *cols):
             """The survivors' scores and rows (n_segs columns each), top-k."""
@@ -762,7 +878,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
                 gpos = torch.nn.functional.pad(gpos, (0, k - m_total), value=-1)
             vals, sel = topk(scores, k)
             return finish(q_valid, vals, torch.gather(gpos, 1, sel).long())
-        finalize = observed(kind, "finalize", select)
+        finalize = stage("finalize", select)
 
         def fn(q, q_valid, live, arrays, consts):
             live = masked_live(live, arrays, consts)
@@ -783,7 +899,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
             return ivf_mod.search_stage(q_rot, centroids, order, offs, packed, qnorms, live0,
                                         k=k, nprobe=nprobe, max_cand=max_cand, metric=metric,
                                         bits=bits, n4_dims=n4)
-        main = observed(kind, "main", ivf_main)
+        main = stage("main", ivf_main)
 
         def fn(q, q_valid, live, arrays, consts):
             live = masked_live(live, arrays, consts)
@@ -798,10 +914,10 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
         # The program's parts report as stage "main": its start, each loop's
         # step and the stages between them, its finish.  A loop's host check
         # (``Loop.more`` read back) drives the program and is no stage.
-        o_start, o_finish = observed(kind, "main", h_start), observed(kind, "main", h_finish)
+        o_start, o_finish = stage("main", h_start), stage("main", h_finish)
         o_middle = tuple(
-            dataclasses.replace(item, step=observed(kind, "main", item.step))
-            if isinstance(item, hnsw_mod.Loop) else observed(kind, "main", item)
+            dataclasses.replace(item, step=stage("main", item.step))
+            if isinstance(item, hnsw_mod.Loop) else stage("main", item)
             for item in h_middle)
 
         def start(q, q_valid, live, arrays, consts):
@@ -830,7 +946,7 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
             if n_total < k:    # k > n: pad to the [b, k] contract
                 scores = torch.nn.functional.pad(scores, (0, k - n_total), value=_NEG)
             return finish(q_valid, *topk(scores, k))
-        finalize = observed(kind, "finalize", select_all)
+        finalize = stage("finalize", select_all)
 
         def fn(q, q_valid, live, arrays, consts):
             live = masked_live(live, arrays, consts)

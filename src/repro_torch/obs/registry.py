@@ -128,6 +128,7 @@ class MetricsRegistry:
         self._counters: Dict[Tuple[str, Labels], Counter] = {}
         self._gauges: Dict[Tuple[str, Labels], Gauge] = {}
         self._histograms: Dict[Tuple[str, Labels], Histogram] = {}
+        self._handles: Dict[tuple, object] = {}
 
     # -- get-or-create -----------------------------------------------------
 
@@ -139,50 +140,54 @@ class MetricsRegistry:
                 raise ValueError(
                     f"metric {name!r} already registered as a {other}")
 
-    def counter(self, name: str, **labels: object) -> Counter:
+    def _get(self, kind: str, table: dict, name: str, labels: dict, make,
+             extra: tuple = ()):
+        """The metric ``name{labels}`` of ``kind``, made by ``make()`` on
+        first use.  A handle cache keyed by the labels as the caller gave
+        them (``extra``: the histogram's edges) finds it without sorting or
+        stringifying them; ``reset()`` empties it.  Unhashable label values
+        take the sorted key alone."""
+        try:
+            fast = (kind, name, tuple(labels.items())) + extra
+            m = self._handles.get(fast)
+        except TypeError:
+            fast, m = None, None
+        if m is not None:
+            return m
         key = (name, _labels_key(labels))
-        c = self._counters.get(key)
-        if c is None:
+        m = table.get(key)
+        if m is None:
             with self._lock:
-                c = self._counters.get(key)
-                if c is None:
-                    self._check_kind(name, "counter")
-                    c = self._counters[key] = Counter()
-        return c
+                m = table.get(key)
+                if m is None:
+                    self._check_kind(name, kind)
+                    m = table[key] = make()
+        if extra and tuple(extra[0]) != m.edges:
+            raise ValueError(
+                f"histogram {name!r} already registered with edges "
+                f"{m.edges}, got {tuple(extra[0])}")
+        if fast is not None:
+            self._handles[fast] = m
+        return m
+
+    def counter(self, name: str, **labels: object) -> Counter:
+        return self._get("counter", self._counters, name, labels, Counter)
 
     def gauge(self, name: str, **labels: object) -> Gauge:
-        key = (name, _labels_key(labels))
-        g = self._gauges.get(key)
-        if g is None:
-            with self._lock:
-                g = self._gauges.get(key)
-                if g is None:
-                    self._check_kind(name, "gauge")
-                    g = self._gauges[key] = Gauge()
-        return g
+        return self._get("gauge", self._gauges, name, labels, Gauge)
 
     def histogram(self, name: str,
                   edges: Tuple[float, ...] = DEFAULT_LATENCY_EDGES_US,
                   **labels: object) -> Histogram:
-        key = (name, _labels_key(labels))
-        h = self._histograms.get(key)
-        if h is None:
-            with self._lock:
-                h = self._histograms.get(key)
-                if h is None:
-                    self._check_kind(name, "histogram")
-                    h = self._histograms[key] = Histogram(edges)
-        elif tuple(edges) != h.edges:
-            raise ValueError(
-                f"histogram {name!r} already registered with edges "
-                f"{h.edges}, got {tuple(edges)}")
-        return h
+        return self._get("histogram", self._histograms, name, labels,
+                         lambda: Histogram(edges), (edges,))
 
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
             self._histograms.clear()
+            self._handles.clear()
 
     # -- export ------------------------------------------------------------
 
@@ -285,12 +290,12 @@ def enable(flag: bool = True) -> bool:
 
 def inc(name: str, n: int = 1, **labels: object) -> None:
     if _ENABLED:
-        _REGISTRY.counter(name, **labels).inc(n)
+        _REGISTRY._get("counter", _REGISTRY._counters, name, labels, Counter).value += n
 
 
 def set_gauge(name: str, v: float, **labels: object) -> None:
     if _ENABLED:
-        _REGISTRY.gauge(name, **labels).set(v)
+        _REGISTRY._get("gauge", _REGISTRY._gauges, name, labels, Gauge).value = float(v)
 
 
 def observe(name: str, v: float,
