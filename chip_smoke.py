@@ -31,6 +31,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
    4-bit and 2-bit full scans, the Hadamard kernel and both proxies byte
    for byte against the parent's kernels at every one of those shapes the
    parent takes;
+3b. hold the top-k select (``csrc/topk_select.cu``) against the masked
+   stable sort it replaced, bit for bit: on the program's adjusted scores
+   at the search cells' [256 x 1,000,000] and [512 x 45,000] and the IVF
+   stage's [64 x 6,688] and [64 x 12,567] (views with a row stride among
+   them), at the narrow callers' shapes through ``scoring.topk`` (two
+   launches a call where ``fits``, none for k > 32 there), on adversarial
+   rows (constant, integer ties, +-0.0, +-inf, NaNs, ascending,
+   descending) at widths 1 to 1,000,000 under all-dead, mostly-dead,
+   3-live and half-live masks, k 1 to 64; its launch pair once per replay
+   of a captured plan;
 4. run the main path: ``MonaVec.build`` (cosine, BruteForce, 4-bit) over the
    seeded AG News stand-in, then 10 batches of 64 queries at k=10, reading
    the kernels' launch counters around it; recall@10 against exact f32
@@ -256,6 +266,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
 Launch counters count kernels that ran: a replay adds its graph's tally.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --topk-select PATH`` runs phase 3b's checks alone
+and then what the full run has no time for: the top-k select against the
+sort at widths 64 to 16,384, and its times beside the sort's, its plain
+version's and ``torch.topk``'s at the cells', the IVF stage's and the
+narrow callers' shapes; the report goes to PATH, and the exit code is 1
+when a check failed.
 """
 
 from __future__ import annotations
@@ -398,6 +415,53 @@ def expect(cond: bool, what: str) -> None:
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = PEAK_F32_OPS_PER_S) -> tuple:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def exact_topk(scores, k: int) -> tuple:
+    """The exact top-k of the last axis by a plain stable descending sort, cut
+    to k: the yardstick of the recall checks and of the top-k select, so it
+    shares no code with the program's ``scoring.topk``."""
+    import torch
+
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def device_ms(fn, calls: int = 10, samples: int = 5, cap_s: float = 2.0) -> float:
+    """Device ms a call: CUDA events around ``calls`` back-to-back calls
+    queued behind a spin kernel, so the card runs them without waiting for
+    the host; the median of ``samples``.  The spin is doubled until the host
+    has queued every call before it ends (the events' first gap proves it),
+    up to ``cap_s`` seconds: a call that waits for the card itself never
+    gets ahead of any spin, and is then timed behind the longest one with
+    the host's gaps counted (said on the log)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin, cap, times, capped = int(1e-3 * SM_CLOCK_HZ), int(cap_s * SM_CLOCK_HZ), [], False
+    while len(times) < samples:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(spin)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        marks[2].record()
+        marks[2].synchronize()
+        if queued_ms >= marks[0].elapsed_time(marks[1]):
+            if spin < cap:
+                spin = min(2 * spin, cap)    # the card caught up with the host
+                continue
+            capped = True
+        times.append(marks[1].elapsed_time(marks[2]) / calls)
+    if capped:
+        say(f"device_ms: the host did not queue {calls} calls of "
+            f"{getattr(fn, '__name__', fn)} within a {cap_s:g} s spin; its time counts the "
+            f"host's gaps")
+    return sorted(times)[samples // 2]
 
 
 def gathered_bound_ms(torch, cand, d_pad: int, bits: int) -> tuple:
@@ -591,7 +655,7 @@ def lifecycle_phase(torch, np, dev, corpus, queries, say, expect) -> dict:
         rows = torch.cat([torch.from_numpy(corpus), torch.from_numpy(added)]).to(dev)
         exact_scores = scoring.score_f32(qt, rows, "cosine")
         exact_scores[:, torch.from_numpy(dead.astype(np.int64)).to(dev)] = -float("inf")
-        exact = scoring.topk(exact_scores, 10)[1].cpu().numpy()   # row == id here
+        exact = exact_topk(exact_scores, 10)[1].cpu().numpy()   # row == id here
         del rows, exact_scores
 
         def recall_of(found):
@@ -749,7 +813,7 @@ def filter_ivf_phase(c) -> dict:
         """Exact f32 cosine top-10 over the admissible rows (row == id)."""
         s = exact_all[:, :mask.shape[0]].clone()
         s[:, ~torch.from_numpy(mask).to(dev)] = -float("inf")
-        return scoring.topk(s, 10)[1].cpu().numpy()
+        return exact_topk(s, 10)[1].cpu().numpy()
 
     def recall(found: np.ndarray, exact: np.ndarray) -> float:
         return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10.0
@@ -1212,7 +1276,7 @@ def hnsw_hybrid_phase(c) -> dict:
         s = scoring.score_f32(qt, torch.from_numpy(rows).to(dev), "cosine")
         if live is not None:
             s[:, ~torch.from_numpy(live).to(dev)] = -float("inf")
-        return scoring.topk(s, 10)[1].cpu().numpy()
+        return exact_topk(s, 10)[1].cpu().numpy()
 
     def recall(found: np.ndarray, exact: np.ndarray) -> float:
         return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10.0
@@ -2118,8 +2182,8 @@ def shard_serve_phase(c) -> dict:
         return got, cache.stats.since(before).captures
 
     qt = torch.from_numpy(queries).to(dev)
-    exact = scoring.topk(scoring.score_f32(qt, torch.from_numpy(corpus).to(dev), "cosine"),
-                         10)[1].cpu().numpy()
+    exact = exact_topk(scoring.score_f32(qt, torch.from_numpy(corpus).to(dev), "cosine"),
+                       10)[1].cpu().numpy()
     del qt
 
     # ---- 10a. sharded search -------------------------------------------------
@@ -2324,15 +2388,17 @@ def shard_serve_phase(c) -> dict:
 
 
 def kernel_counters() -> dict:
-    """B1-B7's launch counters by the names of the kernels line."""
-    from repro_torch.kernels import binary_dot, gather_dot, hadamard, nibble_dot
+    """B1-B7's and the top-k select's launch counters by the names of the
+    kernels line."""
+    from repro_torch.kernels import binary_dot, gather_dot, hadamard, nibble_dot, topk_select
 
     return {"fwht": hadamard.fwht_cuda, "nibble_dot": nibble_dot.nibble_dot_cuda,
             "sign_hamming": binary_dot.sign_hamming_cuda,
             "crumb_affinity": binary_dot.crumb_affinity_cuda,
             "gather_nibble_dot": gather_dot.gather_nibble_dot_cuda,
             "crumb_dot": nibble_dot.crumb_dot_cuda,
-            "gather_crumb_dot": gather_dot.gather_crumb_dot_cuda}
+            "gather_crumb_dot": gather_dot.gather_crumb_dot_cuda,
+            "topk_select": topk_select.topk_select_cuda}
 
 
 def reset_launches(counters: dict) -> None:
@@ -2912,7 +2978,6 @@ def two_tower_serve(torch, np, dev, z, model, cfg, part: str, expect, report_lin
     towers and encoded (B2), users retrieved through B2 then B1, against the
     CPU plain path over the same codes and the exact f32 scores."""
     from repro_torch.core import quantize as qz
-    from repro_torch.core.scoring import topk
     from repro_torch.data.synthetic import recsys_batch
     from repro_torch.dist.steps import two_tower_retrieve
     from repro_torch.models import recsys as rs
@@ -2944,7 +3009,7 @@ def two_tower_serve(torch, np, dev, z, model, cfg, part: str, expect, report_lin
     out["ids_equal_cpu"] = float((many[1].cpu() == cpu_ids).float().mean())
     u = rs.user_embedding(model, cfg, hist)
     scores = rs.score_candidates_f32(u, items)
-    _, exact = topk(scores, 10)
+    _, exact = exact_topk(scores, 10)
     out["overlap_exact"] = float(np.mean([len(set(a) & set(b)) / 10 for a, b in
                                           zip(many[1].tolist(), exact.tolist())]))
     # What sets that overlap: how close the unit item vectors lie (their mean
@@ -3710,6 +3775,297 @@ def train_phase(c) -> dict:
     return report
 
 
+# The top-k select (3b).  Its checks run on the program's adjusted scores at
+# the search cells' shapes and the IVF stage's widths at nprobe 8 / 16
+# (TOPK_SHAPES), at the narrow callers' (rows, width, k) (TOPK_NARROW: the
+# cascade's finalize at rescore_mult 32, HNSW's beam merge at ef 64 and
+# M 16, routers of 64 and 256 experts, an IVF probe of 1,024 lists, a
+# two-segment merge), and on adversarial rows at TOPK_WIDTHS (width, rows)
+# for each k of TOPK_KS up to the width.  ``--topk-select`` adds the sweep
+# of TOPK_SWEEP's widths against the sort and the slow timings.
+TOPK_SHAPES = ((256, BIG_N), (512, N), (64, 6_688), (64, 12_567))
+TOPK_NARROW = ((256, 320, 10), (64, 96, 64), (512, 64, 8), (512, 256, 8), (64, 1024, 16),
+               (64, 20, 10))
+TOPK_WIDTHS = ((1, 64), (3, 64), (64, 64), (97, 64), (320, 64), (513, 64), (4_097, 16),
+               (6_688, 16), (N, 16), (BIG_N, 4))
+TOPK_KS = (1, 10, 32, 33, 64)
+TOPK_SWEEP = (64, 320, 1024, 2048, 4096, 4097, 6144, 8192, 16384)
+# (width, k) of narrow rows where k is a large share of the width (HNSW's
+# beam merge is ef + 2M wide for the top ef), and k 64 across SORT_W.
+TOPK_NARROW_SWEEP = tuple((w, k) for k in (8, 16, 32, 33, 64)
+                          for w in sorted({k, k + 32, 2 * k, 4 * k, 16 * k})) + (
+    (4096, 64), (4097, 64), (16384, 64))
+# f32 bit patterns of the adversarial rows and of the sort's order probe.
+SPECIAL_BITS = (("+0", 0x00000000), ("-0", 0x80000000), ("+inf", 0x7F800000),
+                ("-inf", 0xFF800000), ("+nan", 0x7FC00000), ("-nan", 0xFFC00000),
+                ("+nan.1", 0x7F800001), ("-nan.1", 0xFF800001), ("+den", 0x00000001),
+                ("-den", 0x80000001), ("+max", 0x7F7FFFFF), ("-max", 0xFF7FFFFF),
+                ("+1", 0x3F800000), ("-1", 0xBF800000))
+
+
+def masked_sort_topk(scores, k: int, live=None) -> tuple:
+    """What ``scoring.topk(scores, k, live)`` computed before the select: dead
+    columns NEG, then the plain stable sort cut to k."""
+    from repro_torch.core.allowlist import NEG
+
+    if live is not None:
+        scores = scores.masked_fill(~live, float(NEG))
+    return exact_topk(scores, k)
+
+
+def topk_select_checks(torch, np, dev, say, expect) -> tuple:
+    """3b: ``kernels.topk_select`` against the masked stable sort it
+    replaced, bit for bit: the sort's order on special values (and the
+    kernel's on the same rows); the program's adjusted scores at
+    ``TOPK_SHAPES`` (a 45,000 x 1024 stand-in index; 1,000,000 random 4-bit
+    codes), views with a row stride among them, under no, half-live,
+    0.1%-live and 3-live masks; ``TOPK_NARROW`` through ``scoring.topk``,
+    two launches a call where ``fits`` and none elsewhere; adversarial rows (constant, integer ties,
+    specials, +-0.0, ascending, descending) at ``TOPK_WIDTHS`` under no,
+    all-dead, mostly-dead, 3-live and half-live masks at each k of
+    ``TOPK_KS``; one launch pair per replay of a captured BruteForce plan,
+    whose results equal the sort path's.  Returns the report and the
+    program's scores at the two cells' shapes, for the timings."""
+    from repro_torch import MonaVec
+    from repro_torch.core import quantize as qz, scoring
+    from repro_torch.core.allowlist import NEG
+    from repro_torch.core.bruteforce import scan_stage
+    from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
+    from repro_torch.kernels import topk_select as sel
+
+    kernel = sel.topk_select_cuda
+    rng = np.random.default_rng(SEED + 30)
+    out: dict = {"k_max": sel.K_MAX, "checks": 0, "failed": [], "sort_order": {}}
+
+    def same(a, b) -> bool:
+        return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.view(torch.int32) if x.dtype == torch.float32 else x,
+            y.view(torch.int32) if y.dtype == torch.float32 else y) for x, y in zip(a, b))
+
+    def check(label, scores, k, live=None, fn=kernel) -> None:
+        got, want = fn(scores, k, live), masked_sort_topk(scores, k, live)
+        torch.cuda.synchronize()
+        ok = same(got, want)
+        out["checks"] += 1
+        if not ok:
+            bad = int((got[1] != want[1]).any(1).nonzero()[0, 0]) if got[1].shape == \
+                want[1].shape else 0
+            out["failed"].append({"label": label, "k": k, "row": bad,
+                                  "got": got[1][bad, :8].tolist(),
+                                  "want": want[1][bad, :8].tolist()})
+        expect(ok, f"topk_select {label} k={k}: differs from the stable sort")
+
+    def masks(w: int) -> dict:
+        three = torch.zeros(w, dtype=torch.bool)
+        three[torch.from_numpy(rng.choice(w, min(3, w), replace=False))] = True
+        return {"none": None, "dead": torch.zeros(w, dtype=torch.bool, device=dev),
+                "mostly_dead": torch.from_numpy(rng.random(w) < 1e-3).to(dev),
+                "three": three.to(dev), "half": torch.from_numpy(rng.random(w) < 0.5).to(dev)}
+
+    bits = np.array([b for _, b in SPECIAL_BITS] + [int(np.array(NEG, np.float32).view(
+        np.uint32))], np.uint32)
+
+    # The sort's order of the special values at a width (its path changes
+    # with the width): the specials and NEG at columns 0..14, -1e30 after.
+    names = [name for name, _ in SPECIAL_BITS] + ["NEG"]
+    for w in (20, 64, 96, 320, 4096, 4100, 100_000):
+        row = np.full((2, w), -1e30, np.float32)
+        row[:, :len(bits)] = bits.view(np.float32)
+        probe = torch.from_numpy(row).to(dev)
+        order = masked_sort_topk(probe, len(bits))[1][0].tolist()
+        out["sort_order"][w] = [names[i] if i < len(names) else "-1e30" for i in order]
+        say(f"topk_select: the sort's order at width {w}: {' '.join(out['sort_order'][w])}")
+        check(f"order probe [2 x {w}]", probe, len(bits))
+
+    # The program's adjusted scores: the stand-in index and random 1M codes.
+    t0 = time.perf_counter()
+    corpus = embedding_corpus(SEED, N, DIM)
+    small = MonaVec.build(corpus, metric="cosine")
+    big = MonaVec.from_arrays(
+        rng.integers(0, 256, size=(BIG_N, DIM // 2), dtype=np.uint8),
+        rng.uniform(0.5, 1.5, BIG_N).astype(np.float32), seed=SEED, metric="cosine", bits=4,
+        dim=DIM, dim_pad=DIM)
+
+    def program_scores(index, q: np.ndarray):
+        enc = index.backend.enc
+        q_rot = qz.encode_query(torch.from_numpy(q).to(dev), enc)
+        return scoring.adjust_scores(scan_stage(q_rot, enc.packed, bits=enc.bits),
+                                     enc.qnorms, enc.metric)
+
+    s45 = program_scores(small, queries_from_corpus(corpus, SEED + 1, 512))
+    s1m = program_scores(big, rng.standard_normal((256, DIM), dtype=np.float32))
+    del big
+    torch.cuda.synchronize()
+    say(f"topk_select: scores [512 x {N}] and [256 x {BIG_N}] in "
+        f"{time.perf_counter() - t0:.1f} s; K_MAX {sel.K_MAX}")
+    t0 = time.perf_counter()
+    for b, w in TOPK_SHAPES:
+        scores = s1m[:b, :w] if w == BIG_N else s45[:b, :w]
+        m = masks(w)
+        for k, live in ((10, None), (10, "half"), (1, "mostly_dead"), (64, "half"),
+                        (33, "three")):
+            check(f"[{b} x {w}] live={live}", scores, k, m[live] if live else None)
+        if not scores.is_contiguous():
+            check(f"[{b} x {w}] contiguous copy", scores.contiguous(), 10)
+
+    # The narrow callers' rows through the program's entry point: two
+    # launches a call where ``fits`` (k <= SORT_K here), none elsewhere.
+    for b, w, k in TOPK_NARROW:
+        live = masks(w)["half"]
+        for label, scores in (("view", s45[:b, :w]), ("contiguous", s45[:b, :w].contiguous())):
+            for mask in (None, live):
+                before = kernel.launches
+                check(f"scoring.topk [{b} x {w}] {label} live={mask is not None}", scores, k,
+                      mask, fn=scoring.topk)
+                want_launches = 2 if sel.fits(scores, k) else 0
+                expect(kernel.launches - before == want_launches,
+                       f"topk_select: scoring.topk at [{b} x {w}] k={k} launched the kernel "
+                       f"{kernel.launches - before} times, not {want_launches}")
+
+    # Adversarial rows.
+    for w, b in TOPK_WIDTHS:
+        rows = {"constant": torch.full((b, w), 0.25, device=dev),
+                "int_ties": torch.from_numpy(rng.integers(-3, 4, (b, w)).astype(np.float32)
+                                             ).to(dev),
+                "specials": torch.from_numpy(
+                    bits[rng.integers(0, len(bits), size=(b, w))].view(np.float32)).to(dev),
+                "signed_zeros": torch.from_numpy(np.where(rng.random((b, w)) < 0.5, 0.0, -0.0
+                                                          ).astype(np.float32)).to(dev),
+                "ascending": torch.arange(w, device=dev, dtype=torch.float32).repeat(b, 1),
+                "descending": -torch.arange(w, device=dev, dtype=torch.float32).repeat(b, 1)}
+        m = masks(w)
+        for kind, scores in rows.items():
+            for live_name, live in m.items():
+                for k in TOPK_KS:
+                    if k <= w:
+                        check(f"{kind} [{b} x {w}] live={live_name}", scores, k, live)
+    torch.cuda.synchronize()
+    say(f"topk_select: {out['checks']} checks, {len(out['failed'])} failed "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # A captured BruteForce plan: one launch pair a replay; the same bytes
+    # as the sort path's eager stages (``fits`` refusing every row).
+    small.delete(small.ids[::9])
+    searcher = small.searcher(k=10)
+    searcher.warmup(64)
+    (graph,) = small.backend.graphs.values()
+    tally = graph.tally.get(kernel, 0)
+    qs = queries_from_corpus(corpus, SEED + 2, 64 * BATCHES)
+    kernel.launches = 0
+    got = [searcher(qs[64 * i: 64 * (i + 1)]) for i in range(BATCHES)]
+    launches = kernel.launches
+    fits = sel.fits
+    sel.fits = lambda scores, k: False    # every row back on the sort
+    try:
+        want = [search_eager(small, qs[64 * i: 64 * (i + 1)]) for i in range(BATCHES)]
+    finally:
+        sel.fits = fits
+    same_results = all(same_result(a, b) for a, b in zip(got, want))
+    out["plan"] = {"tally": tally, "launches": launches, "replays": BATCHES,
+                   "same_as_sort": same_results}
+    say(f"topk_select in a captured plan: tally {tally} a replay, {launches} launches over "
+        f"{BATCHES} replays; results as the sort path's: {same_results}")
+    expect(tally == 2 and launches == 2 * BATCHES,
+           "topk_select: a captured plan's replay did not launch the select pair once")
+    expect(same_results, "topk_select: a captured plan's results differ from the sort path's")
+    del small, searcher, graph
+    return out, {"1m": s1m, "45k": s45}
+
+
+def topk_select_sweep(torch, np, dev, say, scores: dict) -> dict:
+    """``--topk-select``'s slow part: the kernel against the sort at each of
+    ``TOPK_SWEEP``'s widths (b 64 and 256, and its order on special values
+    there) and of ``TOPK_NARROW_SWEEP``'s (width, k), and at ``TOPK_SHAPES``
+    and ``TOPK_NARROW`` the kernel (with a half-live mask too), the masked
+    sort, its plain version and ``torch.topk``, all in device time behind a
+    spin."""
+    from repro_torch.kernels import ref, topk_select as sel
+
+    kernel = sel.topk_select_cuda
+    rng = np.random.default_rng(SEED + 31)
+    bits = np.array([b for _, b in SPECIAL_BITS], np.uint32)
+    s45 = scores["45k"]
+    out: dict = {"sweep": {}, "shapes": {}}
+    for w in TOPK_SWEEP:
+        sp = torch.from_numpy(bits[rng.integers(0, len(bits), size=(64, w))].view(np.float32)
+                              ).to(dev)
+        entry = {"order_as_sort": all(torch.equal(x, y) for x, y in zip(
+            kernel(sp, 10)[1:], masked_sort_topk(sp, 10)[1:]))}
+        for b in (64, 256):
+            x = s45[:b, :w].contiguous()
+            entry[f"b{b}"] = {"kernel_ms": device_ms(lambda: kernel(x, 10)),
+                              "sort_ms": device_ms(lambda: masked_sort_topk(x, 10))}
+        out["sweep"][w] = entry
+        say(f"topk_select sweep w={w}: order as the sort's {entry['order_as_sort']}; "
+            + "; ".join(f"b={b} kernel {entry[f'b{b}']['kernel_ms']:.4f} ms sort "
+                        f"{entry[f'b{b}']['sort_ms']:.4f} ms" for b in (64, 256)))
+    for w, k in TOPK_NARROW_SWEEP:
+        entry = {}
+        for b in (64, 256):
+            x = s45[:b, :w].contiguous()
+            entry[f"b{b}"] = {"kernel_ms": device_ms(lambda: kernel(x, k)),
+                              "sort_ms": device_ms(lambda: masked_sort_topk(x, k))}
+        out["sweep"][f"{w}k{k}"] = entry
+        say(f"topk_select sweep w={w} k={k}: " + "; ".join(
+            f"b={b} kernel {entry[f'b{b}']['kernel_ms']:.4f} ms sort "
+            f"{entry[f'b{b}']['sort_ms']:.4f} ms" for b in (64, 256)))
+    shapes = {(b, w, 10): scores["1m"] if w == BIG_N else s45[:b, :w] for b, w in TOPK_SHAPES}
+    shapes.update({(b, w, k): s45[:b, :w].contiguous() for b, w, k in TOPK_NARROW})
+    for (b, w, k), x in shapes.items():
+        live = torch.from_numpy(rng.random(w) < 0.5).to(dev)
+        chunk, chunks = sel.chunk_plan(b, w)
+        entry = {
+            "kernel_ms": device_ms(lambda: kernel(x, k)),
+            "kernel_live_ms": device_ms(lambda: kernel(x, k, live)),
+            "sort_ms": device_ms(lambda: masked_sort_topk(x, k)),
+            "sort_live_ms": device_ms(lambda: masked_sort_topk(x, k, live)),
+            "plain_ms": device_ms(lambda: ref.topk_select_ref(x, k, live), calls=3, samples=3),
+            "torch_topk_ms": device_ms(lambda: torch.topk(x, k, dim=-1)),
+            "bound_ms": 1e3 * 4 * b * w / PEAK_BYTES_PER_S, "chunk": chunk, "chunks": chunks}
+        out["shapes"][f"{b}x{w}k{k}"] = entry
+        say(f"topk_select [{b} x {w}] k={k} (chunk {chunk}, {chunks} a row): kernel "
+            f"{entry['kernel_ms']:.4f} ms (live {entry['kernel_live_ms']:.4f}), bound "
+            f"{entry['bound_ms']:.4f} ms ({100 * entry['bound_ms'] / entry['kernel_ms']:.1f}%), "
+            f"sort {entry['sort_ms']:.4f} ms (masked {entry['sort_live_ms']:.4f}), plain "
+            f"{entry['plain_ms']:.4f} ms, torch.topk {entry['torch_topk_ms']:.4f} ms")
+    return out
+
+
+def topk_select_child(report_path: str) -> int:
+    """``--topk-select PATH``: the card's line, the build of
+    csrc/topk_select.cu (ptxas report), phase 3b's checks, then the sweep
+    and the slow timings; the report to PATH; exit 1 when a check failed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cuda_build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+    say(smi)
+    report: dict = {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    for name, info in cuda_build.build(["topk_select", "nibble_dot", "hadamard"]).items():
+        say(f"build {name}: {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                say(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    report["topk_select"], scores = topk_select_checks(torch, np, dev, say, expect)
+    report["topk_select"].update(topk_select_sweep(torch, np, dev, say, scores))
+    say(f"topk_select checks, sweep and timings: {time.perf_counter() - t0:.1f} s")
+    report["failures"] = FAILURES
+    Path(report_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(report_path).write_text(json.dumps(report, indent=2, default=str))
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the full report here")
@@ -3721,6 +4077,9 @@ def main() -> int:
     ap.add_argument("--phase11-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--phase12-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--phase13-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--topk-select", default=None, metavar="PATH",
+                    help="run phase 3b (the top-k select against the stable sort) alone, "
+                         "with its sweep of widths and timings, and write its report to PATH")
     args = ap.parse_args()
     faulthandler.enable()     # a crash in native code names its Python line
     if args.phase11_child:
@@ -3729,6 +4088,8 @@ def main() -> int:
         return zoo_child(args.phase12_child)
     if args.phase13_child:
         return train_child(args.phase13_child)
+    if args.topk_select:
+        return topk_select_child(args.topk_select)
 
     import torch
 
@@ -3744,7 +4105,7 @@ def main() -> int:
     from repro_torch.core.bruteforce import BruteForceIndex
     from repro_torch.data.synthetic import embedding_corpus, queries_from_corpus
     from repro_torch.kernels import (binary_dot, cuda_build, gather_dot, hadamard, nibble_dot,
-                                     ops, ref)
+                                     ops, ref, topk_select)
     from repro_torch.kernels.binary_dot import crumb_affinity_cuda, sign_hamming_cuda
     from repro_torch.kernels.gather_dot import gather_crumb_dot_cuda, gather_nibble_dot_cuda
     from repro_torch.kernels.nibble_dot import crumb_dot_cuda, nibble_dot_cuda
@@ -3771,7 +4132,8 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    built = cuda_build.build(["hadamard", "nibble_dot", "binary_dot", "gather_dot"])
+    built = cuda_build.build(["hadamard", "nibble_dot", "binary_dot", "gather_dot",
+                              "topk_select"])
     build_s = time.perf_counter() - t0
     for name, info in built.items():
         say(f"build {name}: {info['seconds']:.2f} s")
@@ -4162,6 +4524,13 @@ def main() -> int:
                                "crumb_scan_main_max_abs_err": crumb_err,
                                "gather_crumb_main_max_abs_err": gather_crumb_err}
 
+    # ---- 3b. the top-k select against the sort --------------------------------
+    t_phase = time.perf_counter()
+    report["topk_select"], topk_scores = topk_select_checks(torch, np, dev, say, expect)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 3b: {time.perf_counter() - t_phase:.1f} s")
+
     # ---- 4. the main path ----------------------------------------------------
     t0 = time.perf_counter()
     corpus = embedding_corpus(SEED, N, DIM)
@@ -4197,6 +4566,8 @@ def main() -> int:
     say(f"launches: build {build_launches}, {BATCHES} searches {search_launches}")
     expect(launches["fwht"] > 0, "the Hadamard kernel was not launched on the main path")
     expect(launches["nibble_dot"] > 0, "the scan kernel was not launched on the main path")
+    expect(search_launches["topk_select"] > 0,
+           "the top-k select was not launched on the main path")
 
     scores = np.concatenate([r[0] for r in results])
     ids = np.concatenate([r[1] for r in results])
@@ -4206,7 +4577,7 @@ def main() -> int:
 
     qt = torch.from_numpy(queries).to(dev)
     ct = torch.from_numpy(corpus).to(dev)
-    exact = scoring.topk(scoring.score_f32(qt, ct, "cosine"), 10)[1].cpu().numpy()
+    exact = exact_topk(scoring.score_f32(qt, ct, "cosine"), 10)[1].cpu().numpy()
     del ct
 
     def recall_of(found: np.ndarray) -> float:
@@ -4514,9 +4885,9 @@ def main() -> int:
     spectrum = np.exp(-np.arange(DIM) / 80).astype(np.float32)
     f_corpus = (f_rng.randn(4000, DIM) * spectrum).astype(np.float32)
     f_queries = (f_rng.randn(64, DIM) * spectrum).astype(np.float32)
-    f_exact = scoring.topk(scoring.score_f32(torch.from_numpy(f_queries).to(dev),
-                                             torch.from_numpy(f_corpus).to(dev), "cosine"),
-                           10)[1].cpu().numpy()
+    f_exact = exact_topk(scoring.score_f32(torch.from_numpy(f_queries).to(dev),
+                                           torch.from_numpy(f_corpus).to(dev), "cosine"),
+                         10)[1].cpu().numpy()
     f_x = torch.from_numpy(f_corpus).to(dev)
     f_perm = qz.variance_permutation(rhdh.rhdh_apply(
         standardize.prepare(f_x[:PERM_SAMPLE], "cosine"), 2, normalized=False))
@@ -4599,34 +4970,6 @@ def main() -> int:
         p = 1.0 - 10.0 / iters
         return {"median": times[iters // 2], "p": p, "p_ms": times[int(p * iters) - 1],
                 "samples": iters, "launches_per_sample": reps}
-
-    def device_ms(fn, calls: int = B2B, samples: int = 5) -> float:
-        """Device time per call: CUDA events around ``calls`` back-to-back
-        calls queued behind a spin kernel, so the card runs them without
-        waiting for the host; the median of ``samples``.  The spin is
-        doubled until the host has queued every call before it ends (the
-        events' first gap proves it)."""
-        fn()
-        torch.cuda.synchronize()
-        spin = int(1e-3 * SM_CLOCK_HZ)
-        times = []
-        while len(times) < samples:
-            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            marks[0].record()
-            torch.cuda._sleep(spin)
-            marks[1].record()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            queued_ms = 1e3 * (time.perf_counter() - t0)
-            marks[2].record()
-            marks[2].synchronize()
-            if queued_ms >= marks[0].elapsed_time(marks[1]):
-                spin *= 2      # the card caught up with the host: not a device time
-                continue
-            times.append(marks[1].elapsed_time(marks[2]) / calls)
-        times.sort()
-        return times[samples // 2]
 
     def three_ways(fn) -> tuple:
         """One launch a sample, back-to-back, and device time."""
@@ -4742,6 +5085,26 @@ def main() -> int:
                                         for k in ("kernel", "plain", "library"))
     fwht_bound, fwht_by = fwht_timing["fwht"]["bound_ms"], fwht_timing["fwht"]["bound_by"]
     del xs, h_dense, x
+
+    # The top-k select at the two search cells' shapes, k 10, on phase 3b's
+    # program scores; its yardstick the stable sort it replaced.
+    topk_timing = {}
+    for label, tk in topk_scores.items():
+        tk_rows, tk_width = tk.shape
+        run = lambda: topk_select.topk_select_cuda(tk, 10)
+        te = {"kernel": time_ms(run), "device_ms": device_ms(run),
+              "plain": time_ms(lambda: ref.topk_select_ref(tk, 10), iters=20, warmup=1),
+              "library": time_ms(lambda: exact_topk(tk, 10)),
+              "bound_ms": 1e3 * 4 * tk_rows * tk_width / PEAK_BYTES_PER_S, "bound_by": "bytes",
+              "shape": [tk_rows, tk_width]}
+        topk_timing[label] = te
+        say(f"time topk_select [{tk_rows} x {tk_width}] k=10: one launch "
+            f"{te['kernel']['median']:.4f} ms, device {te['device_ms']:.4f} ms "
+            f"({te['bound_ms'] / te['device_ms']:.1%} of the bound {te['bound_ms']:.4f} ms, "
+            f"bytes); plain {te['plain']['median']:.4f} ms; "
+            f"stable sort {te['library']['median']:.4f} ms")
+    del topk_scores, tk
+    torch.cuda.empty_cache()
 
     # The cascade's kernels.  Yardsticks, timed only: the proxies as one f32
     # matmul of the +-1 sign planes (= d' - 2 hamming) or of the crumb level
@@ -5079,6 +5442,8 @@ def main() -> int:
                f"engine {label}: searches after the warm-up minted a plan or a graph")
         expect(per_replay and sum(tally.values()) > 0,
                f"engine {label}: launches did not grow by the graph's tally each replay")
+        expect(tally["topk_select"] == 2,
+               f"engine {label}: a replay did not launch the top-k select pair once")
         report["engine"][f"warmup_{label}"] = {"warmup": dataclasses.asdict(warm),
                                                "after": dataclasses.asdict(after),
                                                "tally": tally, "launches": got}
@@ -5253,6 +5618,23 @@ def main() -> int:
             "max_abs_err": err, "ms": entry["kernel"]["median"],
             "plain_ms": entry["plain"]["median"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library"]["median"]})
+    # The top-k select replaces no TPU kernel (the reference's lax.top_k is a
+    # library op); it is bit-exact (phase 3b).  Its times at the 1M cell's
+    # [256 x 1,000,000], at_45k the 45K cell's [512 x 45,000]; its launches
+    # on phase 4's main path (build and searches), 4b's cascades, 4c's
+    # precisions, each counted from 0.
+    t1m, t45k = topk_timing["1m"], topk_timing["45k"]
+    kernels.append({
+        "name": "topk_select", "route": "cuda", "source": "src/repro_torch/csrc/topk_select.cu",
+        "replaces": "none (lax.top_k, a library op)", "launches": launches["topk_select"],
+        "launches_cascade": cascade_launches["topk_select"],
+        "launches_precision": precision_launches["topk_select"], "max_abs_err": 0.0,
+        "ms": t1m["kernel"]["median"], "device_ms": t1m["device_ms"],
+        "plain_ms": t1m["plain"]["median"], "bound_ms": t1m["bound_ms"], "bound_by": "bytes",
+        "library_ms": t1m["library"]["median"], "shape": t1m["shape"],
+        "at_45k": {"ms": t45k["kernel"]["median"], "device_ms": t45k["device_ms"],
+                   "plain_ms": t45k["plain"]["median"], "bound_ms": t45k["bound_ms"],
+                   "library_ms": t45k["library"]["median"], "shape": t45k["shape"]}})
     # The launches of each kernel on phase 8's paths: HNSW (8a, both efs), its
     # lifecycle (8d), a 2-bit HNSW with an added segment, hybrid (8f, plain).
     for entry in kernels:

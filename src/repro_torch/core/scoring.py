@@ -9,10 +9,12 @@ Metric adjustments (q_norm = ||dequantized rotated vector||):
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..kernels import topk_select
+from .allowlist import NEG
 from .standardize import COSINE, DOT, L2
 
 
@@ -53,9 +55,20 @@ def score_f32(q: torch.Tensor, corpus: torch.Tensor, metric: str) -> torch.Tenso
     raise ValueError(f"unknown metric {metric!r}")
 
 
-def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def topk(scores: torch.Tensor, k: int,
+         live: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of the last axis with the reference's tie rule: among equal
-    scores the lower index wins, as with ``jax.lax.top_k``.  ``torch.topk``
-    gives no such order, so this is a stable descending sort, cut to k."""
+    scores the lower index wins, as with ``jax.lax.top_k``.  With ``live``
+    ([n] bool) a dead column scores NEG.
+
+    Rows that ``kernels.topk_select.fits`` (2-D f32, k <= ``K_MAX``, no
+    gradient wanted; for k > 32 wider than 4,096) go to the top-k select
+    kernel (its plain version off the card); any other keeps a stable
+    descending sort cut to k (``torch.topk`` gives no such order).  Both
+    give the same bytes."""
+    if topk_select.fits(scores, k):
+        return topk_select.select(scores, k, live)
+    if live is not None:
+        scores = scores.masked_fill(~live, float(NEG))
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]

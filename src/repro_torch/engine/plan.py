@@ -942,10 +942,10 @@ def _build_plan(backend: Any, extras: Sequence[Any], key: PlanKey, knobs: dict,
         def select_all(q_valid, live, *cols):
             """The segments' scores, dead rows NEG, top-k."""
             scores = cols[0] if n_segs == 1 else torch.cat(cols, dim=1)
-            scores.masked_fill_(~live[None, :], _NEG)    # in place: no second [b, n]
             if n_total < k:    # k > n: pad to the [b, k] contract
                 scores = torch.nn.functional.pad(scores, (0, k - n_total), value=_NEG)
-            return finish(q_valid, *topk(scores, k))
+                live = torch.nn.functional.pad(live, (0, k - n_total), value=True)
+            return finish(q_valid, *topk(scores, k, live=live))
         finalize = stage("finalize", select_all)
 
         def fn(q, q_valid, live, arrays, consts):

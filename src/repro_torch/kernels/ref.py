@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core import lloydmax
+from ..core.allowlist import NEG
 from ..core.quantize import unpack_2bit, unpack_4bit
 from ..core.rhdh import hadamard_matrix
 
@@ -149,3 +150,36 @@ def gather_mixed_dot_ref(packed: torch.Tensor, q_rot: torch.Tensor, cand: torch.
     b4 = n4_dims // 2
     return (gather_nibble_dot_ref(packed[:, :b4], q_rot[:, :n4_dims], cand)
             + gather_crumb_dot_ref(packed[:, b4:], q_rot[:, n4_dims:], cand))
+
+
+# ---------------------------------------------------------------------------
+# The top-k select.
+# ---------------------------------------------------------------------------
+
+#: The low 31 bits of a rank: 2^31 - 1 - column.
+_COL_MASK = 2 ** 31 - 1
+
+
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """Each f32's place in CUB's radix order of floats, as an int64 in
+    [0, 2^32): -0.0 as +0.0, a value with its sign bit set with every bit
+    flipped, any other with its sign bit set (+NaN above +inf, a NaN with its
+    sign bit set below -inf)."""
+    u = scores.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, 0, u)
+    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+
+
+def topk_select_ref(scores: torch.Tensor, k: int, live=None) -> tuple:
+    """The kernel's top-k select: [b, n] f32 (``live`` [n] bool or None: a
+    dead column scores NEG) -> (vals [b, k] f32, idx [b, k] int64), best
+    first.  Each element's rank is order_key * 2^31 + (2^31 - 1 - column),
+    unique in its row (so the lower column wins a tie, as in the stable
+    sort); the k highest ranks of a row, which the kernel keeps chunk by
+    chunk and then over the chunks' lists."""
+    if live is not None:
+        scores = torch.where(live, scores, float(NEG))
+    col = torch.arange(scores.shape[-1], device=scores.device)
+    top = (order_key(scores) * 2 ** 31 + (_COL_MASK - col)).topk(k, dim=-1).values
+    idx = _COL_MASK - (top & _COL_MASK)
+    return scores.gather(-1, idx), idx
